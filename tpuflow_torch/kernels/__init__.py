@@ -1,0 +1,8 @@
+"""Hand-written Hopper kernels for the hot sweep loops, each beside its
+plain PyTorch version (counterpart of :mod:`tpuflow.kernels`).
+
+A wrapper takes the plain version for CPU tensors and launches its CUDA
+kernel for CUDA tensors, or raises; it never falls back. The kernels are
+built at first launch (:mod:`tpuflow_torch.kernels._build`), never at
+import.
+"""

@@ -1,0 +1,98 @@
+"""Build and load the hand-written CUDA kernels, and check their arguments.
+
+Each ``tpuflow_torch/csrc/<name>.cu`` has a plain C interface. It is
+compiled with nvcc for Hopper (``sm_90a``) into
+``build/tpuflow_torch/lib<name>_<hash>.so`` at first use and loaded with
+ctypes. The hash covers the source and the flags, so an edited source is
+rebuilt. Nothing here runs at import time; a failed build raises with
+nvcc's output. nvcc's ``-Xptxas -v`` report (registers, shared memory,
+spills) is kept beside the library as ``<name>.log``.
+
+``-fmad=false`` keeps nvcc from contracting a*b+c into one fused
+multiply-add, so a kernel rounds after every operation as PyTorch's
+eager elementwise ops do, and its plain version on the card can be held
+to it tightly.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuflow_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+# Shared memory one block may take on Hopper (227 KB; above 48 KB only
+# as dynamic shared memory, opted into by the launcher).
+MAX_SMEM_BYTES = 232448
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (PATH or CUDA_HOME)")
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        (BUILD_DIR / f"{name}.log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu "
+                               f"(exit {proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        tmp.replace(out)
+    return ctypes.CDLL(str(out))
+
+
+def check_fields(name: str, *fields: torch.Tensor) -> None:
+    """Every field is 2-D, of one shape, on one device. On CUDA the kernel
+    also needs contiguous float32; anything else raises (no fallback)."""
+    first = fields[0]
+    for f in fields:
+        if f.dim() != 2 or f.shape != first.shape:
+            raise ValueError(f"{name}: fields must share one (H, W) shape, "
+                             f"got {tuple(f.shape)} and {tuple(first.shape)}")
+        if f.device != first.device:
+            raise ValueError(f"{name}: fields on {f.device} and {first.device}")
+    if first.device.type == "cpu":
+        return
+    if first.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {first.device}")
+    for f in fields:
+        if f.dtype != torch.float32:
+            raise TypeError(f"{name}: the CUDA kernel takes float32, "
+                            f"got {f.dtype}")
+        if not f.is_contiguous():
+            raise ValueError(f"{name}: the CUDA kernel takes contiguous fields")
+
+
+def check_launch(lib: ctypes.CDLL, prefix: str, rc: int) -> None:
+    """Raise if the launcher returned a CUDA error code."""
+    if rc != 0:
+        msg = getattr(lib, f"{prefix}_error_string")(rc).decode()
+        raise RuntimeError(f"{prefix} launch failed: CUDA error {rc} ({msg})")

@@ -1,0 +1,129 @@
+"""Fused Black-Anandan IRLS Jacobi sweeps: the CUDA kernel and its plain version.
+
+Counterpart of ``tpuflow/kernels/irls_stencil.py::irls_sweep_pallas``. One
+reference sweep (IRLS_OpticalFlow_Pyramid, OpticalFlow.cpp:213-270)
+updates every site with
+
+    dEx = lambdaD * gx * psi_GM(gx*u + gy*v + it, sigmaD)
+        + lambdaS * sum_{4-nbr in frame} psi_GM(u - u_nbr, sigmaS)
+    u  -= dEx / sup_x       (sup = Lipschitz bound, a global scalar)
+
+in Jacobi order. :func:`irls_sweeps` runs ``fuse`` sweeps: on a CUDA
+tensor through ``csrc/irls_stencil.cu`` (one launch; the source says what
+bounds it on the H100 and how the fused design answers), on a CPU tensor
+through :func:`irls_sweeps_plain`. ``sup_x``/``sup_y`` are one-element
+tensors on the fields' device, so a launch never waits for the host.
+Energy checks and early stopping stay outside
+(:mod:`tpuflow_torch.solvers.black_anandan_fast`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpuflow_torch.core import borders as bd
+from tpuflow_torch.kernels import _build
+
+# Launches of the CUDA kernel in this process (never the plain version).
+LAUNCHES = 0
+# Core tile of one block and its thread count. The shared tile is the core
+# plus a fuse-pixel halo on each side: 7 float fields, so
+# 7 * 4 * (TILE_H + 2*fuse) * (TILE_W + 2*fuse) bytes.
+# Chosen by a sweep of tiles and threads at fuse 16 on the H100 (PERF.md).
+TILE_H = 32
+TILE_W = 32
+THREADS = 512
+
+# Neighbour offsets (dx, dy), in the order the terms are summed.
+NEIGHBORS = ((-1, 0), (1, 0), (0, -1), (0, 1))
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("irls_stencil")
+    lib.irls_sweeps_launch.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4
+        + [ctypes.c_int, ctypes.c_void_p])
+    lib.irls_sweeps_launch.restype = ctypes.c_int
+    lib.irls_sweeps_error_string.argtypes = [ctypes.c_int]
+    lib.irls_sweeps_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def smem_bytes(fuse: int) -> int:
+    return 7 * 4 * (TILE_H + 2 * fuse) * (TILE_W + 2 * fuse)
+
+
+def _neighbor_masks(h: int, w: int, device) -> list[torch.Tensor]:
+    """For each of :data:`NEIGHBORS`, where that neighbour is in the frame."""
+    ys = torch.arange(h, device=device)[:, None]
+    xs = torch.arange(w, device=device)[None, :]
+    return [(ys + dy >= 0) & (ys + dy < h) & (xs + dx >= 0) & (xs + dx < w)
+            for dx, dy in NEIGHBORS]
+
+
+def irls_sweeps_plain(u, v, gx, gy, it, sup_x, sup_y, fuse: int,
+                      lambda_d: float, lambda_s: float,
+                      sigma_d: float, sigma_s: float):
+    """``fuse`` IRLS Jacobi sweeps in plain PyTorch; returns (u, v)."""
+    from tpuflow_torch.solvers.mestimators import geman_mcclure_psi as psi
+
+    h, w = u.shape
+    masks = _neighbor_masks(h, w, u.device)
+    for _ in range(fuse):
+        psi_d = psi(gx * u + gy * v + it, sigma_d)
+        up = bd.pad2d(u, 1, bd.ZERO)
+        vp = bd.pad2d(v, 1, bd.ZERO)
+        nx = torch.zeros_like(u)
+        ny = torch.zeros_like(v)
+        for (dx, dy), m in zip(NEIGHBORS, masks):
+            un = up[1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+            vn = vp[1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+            nx = nx + torch.where(m, psi(u - un, sigma_s), 0.0)
+            ny = ny + torch.where(m, psi(v - vn, sigma_s), 0.0)
+        u, v = (u - (lambda_d * gx * psi_d + lambda_s * nx) / sup_x,
+                v - (lambda_d * gy * psi_d + lambda_s * ny) / sup_y)
+    return u, v
+
+
+def irls_sweeps(u, v, gx, gy, it, sup_x, sup_y, fuse: int,
+                lambda_d: float = 5.0, lambda_s: float = 1.0,
+                sigma_d: float = 0.1, sigma_s: float = 0.1):
+    """``fuse`` IRLS Jacobi sweeps; returns new (u, v).
+
+    CPU tensors take :func:`irls_sweeps_plain`; CUDA tensors (contiguous
+    float32 fields of one shape, one-element float32 ``sup_x``/``sup_y``
+    on the same device) take one launch of the CUDA kernel, or raise.
+    """
+    global LAUNCHES
+    _build.check_fields("irls_sweeps", u, v, gx, gy, it)
+    if fuse < 1:
+        raise ValueError(f"irls_sweeps: need fuse >= 1, got {fuse}")
+    for s in (sup_x, sup_y):
+        if s.numel() != 1 or s.device != u.device:
+            raise ValueError("irls_sweeps: sup_x/sup_y must be one-element "
+                             f"tensors on {u.device}")
+    if u.device.type == "cpu":
+        return irls_sweeps_plain(u, v, gx, gy, it, sup_x, sup_y, fuse,
+                                 lambda_d, lambda_s, sigma_d, sigma_s)
+    if sup_x.dtype != torch.float32 or sup_y.dtype != torch.float32:
+        raise TypeError("irls_sweeps: the CUDA kernel takes float32 sup_x/sup_y")
+    smem = smem_bytes(fuse)
+    if smem > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"irls_sweeps: fuse={fuse} needs {smem} B of shared "
+                         f"memory per block (> {_build.MAX_SMEM_BYTES})")
+    lib = _lib()
+    h, w = u.shape
+    u_out = torch.empty_like(u)
+    v_out = torch.empty_like(v)
+    with torch.cuda.device(u.device):
+        rc = lib.irls_sweeps_launch(
+            u.data_ptr(), v.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+            it.data_ptr(), sup_x.data_ptr(), sup_y.data_ptr(),
+            u_out.data_ptr(), v_out.data_ptr(), h, w, TILE_H, TILE_W, fuse,
+            lambda_d, lambda_s, sigma_d, sigma_s, THREADS,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(lib, "irls_sweeps", rc)
+    LAUNCHES += 1
+    return u_out, v_out

@@ -1,0 +1,27 @@
+"""Dense variational solvers (counterpart of :mod:`tpuflow.solvers`).
+
+As in tpuflow, the package exports the solver functions by name, so
+``tpuflow_torch.solvers.horn_schunck`` is the function.
+"""
+
+from tpuflow_torch.solvers.horn_schunck import (  # noqa: F401
+    horn_schunck,
+    horn_schunck_classic,
+    hs_gradients,
+)
+from tpuflow_torch.solvers.black_anandan import (  # noqa: F401
+    irls_energy,
+    irls_grad,
+    irls_optical_flow_level,
+    irls_sup,
+    optical_flow_pyramid,
+)
+from tpuflow_torch.solvers.black_anandan_fast import (  # noqa: F401
+    optical_flow_pyramid_fast,
+)
+from tpuflow_torch.solvers.mestimators import (  # noqa: F401
+    geman_mcclure_psi,
+    geman_mcclure_rho,
+    lorentzian_psi,
+    lorentzian_rho,
+)
