@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive tpuflow_torch's main path once on one CUDA card and check it.
+"""Drive tpuflow_torch's main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -7,22 +7,33 @@ Phases, each printing one line of its own numbers:
 
 1. device  — the card's name and power limit; TF32 off for the plain
    float32 references.
-2. build   — builds both CUDA kernels from ``tpuflow_torch/csrc`` (nvcc,
-   into ``build/tpuflow_torch``) and reports seconds and ptxas usage.
-3. kernels — each kernel against its plain PyTorch version on the card, on
-   random float32 fields from a numpy seed: HS 100 sweeps at 1080x1920
-   and IRLS 512 sweeps at 376x1240 (each at its main-path fuse and at a
-   fuse that leaves a remainder), and both at 375x1242 (the ragged KITTI
-   size); with both versions' times on the card.
-4. main    — the launch counters are zeroed, then the main path runs once
-   through the public entry points: ``solvers.horn_schunck`` at 1080x1920
-   (100 iterations, 5x5, alpha 1) and ``optical_flow_pyramid_fast`` at
-   376x1240 (5 levels, 512 sweeps per level, fuse 16), on the frames of
-   bench.py's ``_frames_1080p``/``_frames_kitti``. Each counter must show
-   its kernel ran exactly as often as that path launches it.
-5. hs, ba  — the main-path results are finite and agree with the same
-   calls on float32 CPU copies (which take the plain versions); the BA
-   block counts per level agree; end-to-end times on the card.
+2. build   — builds the four CUDA sources of ``tpuflow_torch/csrc`` (one
+   nvcc each, all started together, into ``build/tpuflow_torch``) and
+   reports seconds and ptxas usage.
+3. kernels — each of the five kernels against its plain PyTorch version
+   on the card, on float32 inputs from a numpy seed, with both versions'
+   device times (``cuda_ms(..., device_only=True)``): HS 100 sweeps at 1080x1920 and IRLS 512 sweeps at
+   376x1240 (each at its main-path fuse and at a fuse that leaves a
+   remainder) and both at 375x1242 (the ragged KITTI size); sepconv at
+   1080x1920 with 48 and 17 taps and at 375x1242 with 64; poly expansion
+   at 1080x1920 with n = 8 and 5 and at 375x1242; blur-solve at 1080x1920
+   with winsize 48 and at 375x1242 with 64.
+4. main    — each main path runs once through the public entry points,
+   with every launch counter set to 0 just before it and read just after;
+   each counter must show its kernel ran exactly as often as that path
+   launches it. The paths: ``solvers.horn_schunck`` at 1080x1920 (100
+   iterations, 5x5, alpha 1); ``optical_flow_pyramid_fast`` at 376x1240
+   (5 levels, 512 sweeps per level, fuse 16); the four Farneback configs
+   of bench.py (streaming, pair demo, multi-level demo on small and on
+   large motion) through ``solvers.calc_optical_flow_farneback``; the
+   streaming config again with ``use_blur_kernel=True``; and
+   ``pipeline.streaming.dense_flow_stream`` over SyntheticSource frames.
+   The frames are bench.py's ``_frames_1080p``, ``_frames_kitti`` and
+   ``_multioctave_frames``.
+5. hs, ba, fb — the main-path results are finite, of the right shape, and
+   agree with the same calls on float32 CPU copies (which take the plain
+   versions); the BA block counts per level agree; end-to-end times on the
+   card beside the chip host's CPU time.
 
 Before the last line it prints the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. A failed phase raises: the script exits
@@ -48,6 +59,17 @@ HS_ITERS, HS_WINDOW, HS_ALPHA = 100, 5, 1.0
 BA_SHAPE = (376, 1240)
 BA_LEVEL, BA_ITER_MAX, BA_FUSE = 5, 512, 16
 RAGGED_SHAPE = (375, 1242)
+# Farneback (pyr_scale, levels, winsize, iterations, poly_n, poly_sigma),
+# bench.py:207-248, each with its frames.
+FB_STREAM = (0.4, 1, 48, 2, 8, 1.2)   # DenseFlow.cpp:37
+FB_DEMO = (0.5, 1, 64, 2, 8, 1.6)     # FarnebackOF.cpp:24
+FB_DEMO3 = (0.5, 3, 15, 3, 5, 1.2)    # HornSchunckOF/main.cpp:111
+FB_CASES = (("stream_1080p", FB_STREAM, "1080p"),
+            ("demo_kitti", FB_DEMO, "kitti"),
+            ("demo3_1080p", FB_DEMO3, "1080p"),
+            ("demo3_largemotion_1080p", FB_DEMO3, "largemotion"))
+# dense_flow_stream: SyntheticSource frames at the demo's working size.
+STREAM_FRAMES, STREAM_WH = 4, (640, 480)
 # Tolerances, as max|d| <= TOL * max(1, max|reference|).
 # Kernel vs its plain version on the card: both compute in float32 and
 # round after every operation (the kernels are built with -fmad=false and
@@ -57,6 +79,8 @@ KERNEL_TOL = 1e-6
 # The card's main path vs the same call on float32 CPU copies: the plain
 # PyTorch ops of the pyramid and the energy checks run on two devices'
 # libraries. Measured on the H100: 0 for HS, 1.7e-6 for BA (|u| <= 0.25).
+# Farneback has no reduction on its path, only elementwise ops, gathers
+# and the kernels.
 PATH_TOL = 1e-5
 
 
@@ -81,16 +105,30 @@ def check_close(name: str, pairs, tol: float) -> float:
     return err
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median device time of fn() in ms, CUDA events, after one warm-up."""
+def cuda_ms(fn, reps: int = 5, device_only: bool = False) -> float:
+    """Median time of fn() in ms between CUDA events, after one warm-up.
+
+    By default the events bracket the call as its caller sees it, the
+    host's launch overhead included (end-to-end times). With
+    ``device_only`` the stream first spins (``torch.cuda._sleep``) for
+    longer than the warm-up took on the host, so fn's launches are queued
+    before the start event fires and the events time the device's work
+    alone (kernel times: a single launch of ~0.1 ms is otherwise timed
+    with the wrapper's Python in front of it).
+    """
     import torch
 
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    # Cycles of a spin that outlasts the host's enqueue (< 3 GHz clock).
+    spin = int(3e9 * (time.perf_counter() - t0)) + 1_000_000
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(spin)
         start.record()
         fn()
         end.record()
@@ -127,6 +165,37 @@ def frames_kitti():
     return base[:kh, :kw].copy(), base[4 : 4 + kh, 2 : 2 + kw].copy()
 
 
+def multioctave_frames(margin: int):
+    """bench.py::_multioctave_frames: multi-octave smoothed noise."""
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(9)
+    shape = (HS_SHAPE[0], HS_SHAPE[1] + margin + 40)
+
+    def octave(sigma):
+        g = gaussian_filter(rng.uniform(0, 1, shape), sigma)
+        return (g - g.mean()) / g.std()
+
+    base = octave(2) + octave(8) + octave(32)
+    base -= base.min()
+    return base * (255.0 / base.max())
+
+
+def frames_largemotion():
+    """bench.py::bench_farneback_demo3_largemotion's pair: a 16-px pan of
+    multi-octave texture and a counter-moving block."""
+    w = HS_SHAPE[1]
+    base = multioctave_frames(16)
+    prev = base[:, :w].copy()
+    nxt = base[:, 16 : 16 + w].copy()
+    nxt[400:700, 300:800] = prev[392:692, 310:810]
+    return prev, nxt
+
+
+FB_FRAMES = {"1080p": frames_1080p, "kitti": frames_kitti,
+             "largemotion": frames_largemotion}
+
+
 def f32(dev, *arrays):
     import torch
 
@@ -153,18 +222,31 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from tpuflow_torch.kernels import _build, hs_stencil, irls_stencil
+    """One nvcc per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    for mod, name in ((hs_stencil, "hs_stencil"),
-                      (irls_stencil, "irls_stencil")):
+    from tpuflow_torch.kernels import (_build, fb_kernels, hs_stencil,
+                                       irls_stencil, sepconv)
+
+    mods = {"hs_stencil": hs_stencil, "irls_stencil": irls_stencil,
+            "sepconv": sepconv, "fb_kernels": fb_kernels}
+
+    def build(name):
         t0 = time.perf_counter()
-        mod._lib()
-        log("build", kernel=name, seconds=round(time.perf_counter() - t0, 3))
-        report = (_build.BUILD_DIR / f"{name}.log")
+        mods[name]._lib()
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(mods)) as pool:
+        seconds = dict(zip(mods, pool.map(build, mods)))
+    for name, sec in seconds.items():
+        log("build", kernel=name, seconds=round(sec, 3))
+        report = _build.BUILD_DIR / f"{name}.log"
         if report.exists():
             for line in report.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print("    " + line.strip(), flush=True)
+    log("build", all_seconds=round(time.perf_counter() - t0, 3))
 
 
 def hs_fields(shape, seed):
@@ -183,15 +265,47 @@ def irls_fields(shape, seed):
     return u, v, gx, gy, it
 
 
-def phase_kernels(dev) -> dict:
-    """Each kernel against its plain version on the card, at the main-path
-    shape and at the ragged KITTI size; both versions timed at each.
-    Returns the numbers at the main-path shapes."""
+def well_conditioned_m(shape, seed):
+    """tests/test_kernels.py:285-295's normal-equation field."""
+    r = np.random.default_rng(seed)
+    a11, a22, db1, db2 = (r.normal(size=shape) for _ in range(4))
+    a12 = 0.2 * r.normal(size=shape)
+    return np.stack([a11 * a11 + a12 * a12, a12 * (a11 + a22),
+                     a12 * a12 + a22 * a22, a11 * db1 + a12 * db2,
+                     a12 * db1 + a22 * db2])
+
+
+def kernel_row(out, name, shape, fn, plain, **what):
+    """Check fn() against plain() on the card, time both, log, and keep
+    the first (main-path) shape's numbers in out[name]."""
     import torch
 
-    from tpuflow_torch.kernels import hs_stencil, irls_stencil
+    got, ref = fn(), plain()
+    if isinstance(got, torch.Tensor):
+        got, ref = (got,), (ref,)
+    err = check_close(f"{name} {shape} {what}", list(zip(got, ref)),
+                      KERNEL_TOL)
+    ms = cuda_ms(fn, device_only=True)
+    plain_ms = cuda_ms(plain, reps=3, device_only=True)
+    log("kernels", kernel=name, shape=shape, **what, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms)
+    out.setdefault(name, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_kernels(dev) -> dict:
+    """Each kernel against its plain version on the card, at the main-path
+    shapes and at the ragged KITTI size; both versions timed at each.
+    Returns the numbers at the first (main-path) shape of each kernel."""
+    import torch
+
+    from tpuflow_torch.core import borders as bd
+    from tpuflow_torch.kernels import (fb_kernels, hs_stencil, irls_stencil,
+                                       sepconv)
     from tpuflow_torch.solvers.black_anandan import (
         LAMBDA_D, LAMBDA_S, SIGMA_D_L0, SIGMA_S_L0, irls_sup)
+    from tpuflow_torch.solvers.farneback import _poly_exp_matrices
 
     out = {}
     hs_fuse = hs_stencil.DEFAULT_FUSE
@@ -206,9 +320,9 @@ def phase_kernels(dev) -> dict:
             log("kernels", kernel="hs_sweeps", shape=shape, sweeps=HS_ITERS,
                 fuse=fuse, max_abs_err=err)
         ms = cuda_ms(lambda: hs_stencil.hs_iterate(
-            *fields, HS_WINDOW, HS_ITERS, hs_fuse))
+            *fields, HS_WINDOW, HS_ITERS, hs_fuse), device_only=True)
         plain_ms = cuda_ms(lambda: hs_stencil.hs_sweeps_plain(
-            *fields, HS_WINDOW, HS_ITERS), reps=3)
+            *fields, HS_WINDOW, HS_ITERS), reps=3, device_only=True)
         log("kernels", kernel="hs_sweeps", shape=shape, sweeps=HS_ITERS,
             fuse=hs_fuse, ms=ms, plain_ms=plain_ms)
         out.setdefault("hs_sweeps", {"max_abs_err": err, "ms": ms,
@@ -239,14 +353,113 @@ def phase_kernels(dev) -> dict:
                                        list(zip(run(fuse), ref)), KERNEL_TOL))
             log("kernels", kernel="irls_sweeps", shape=shape,
                 sweeps=BA_ITER_MAX, fuse=fuse, max_abs_err=err)
-        ms = cuda_ms(lambda: run(BA_FUSE))
-        plain_ms = cuda_ms(plain, reps=3)
+        ms = cuda_ms(lambda: run(BA_FUSE), device_only=True)
+        plain_ms = cuda_ms(plain, reps=3, device_only=True)
         log("kernels", kernel="irls_sweeps", shape=shape, sweeps=BA_ITER_MAX,
             fuse=BA_FUSE, ms=ms, plain_ms=plain_ms)
         out.setdefault("irls_sweeps", {"max_abs_err": err, "ms": ms,
                                        "plain_ms": plain_ms})
         torch.cuda.synchronize()
+
+    # sepconv: Farneback's box (48, 64 uniform taps) and the poly taps (17).
+    for shape, n in ((HS_SHAPE, 48), (HS_SHAPE, 17), (RAGGED_SHAPE, 64)):
+        rng = np.random.default_rng(n)
+        padded, = f32(dev, rng.uniform(0, 255, (shape[0] + n - 1,
+                                                shape[1] + n - 1)))
+        box = np.full(n, 1.0 / n)
+        gauss = np.exp(-np.linspace(-2.0, 2.0, n) ** 2)
+        gauss /= gauss.sum()
+        kernel_row(out, "sep_conv2d_valid", shape,
+                   lambda: sepconv.sep_conv2d_valid(padded, box, gauss),
+                   lambda: sepconv.sep_conv2d_valid_plain(
+                       padded, sepconv.host_taps(box, torch.float32),
+                       sepconv.host_taps(gauss, torch.float32)),
+                   taps=(n, n))
+
+    for shape, n, sigma in ((HS_SHAPE, 8, 1.2), (HS_SHAPE, 5, 1.2),
+                            (RAGGED_SHAPE, 8, 1.6)):
+        g, ginv = _poly_exp_matrices(n, sigma)
+        xs = np.arange(-n, n + 1, dtype=np.float64)
+        rows = ginv[1:6].copy()
+        rows[4] *= 0.5
+        taps = [sepconv.host_taps(t, torch.float32)
+                for t in (g, g * xs, g * xs * xs, rows)]
+        img, = f32(dev, np.random.default_rng(n).uniform(0, 255, shape))
+        padded = bd.pad2d(img, n, bd.CLAMP)
+        kernel_row(out, "fb_poly_expansion", shape,
+                   lambda: fb_kernels.fb_poly_expansion(padded, g, g * xs,
+                                                        g * xs * xs, rows),
+                   lambda: fb_kernels.fb_poly_expansion_plain(
+                       padded, *taps[:3], taps[3].reshape(5, 6)),
+                   n=n)
+
+    for shape, winsize in ((HS_SHAPE, 48), (RAGGED_SHAPE, 64)):
+        m = winsize // 2
+        M, = f32(dev, well_conditioned_m(shape, winsize))
+        Mp = bd.pad2d(M, m, bd.CLAMP)
+        kernel_row(out, "fb_blur_solve", shape,
+                   lambda: fb_kernels.fb_blur_solve(Mp, winsize),
+                   lambda: fb_kernels.fb_blur_solve_plain(Mp, winsize),
+                   winsize=winsize)
     return out
+
+
+# -- the main paths, each with its launch counts ------------------------------
+
+KERNELS = ("hs_sweeps", "irls_sweeps", "sep_conv2d_valid",
+           "fb_poly_expansion", "fb_blur_solve")
+
+
+def reset_counts() -> None:
+    from tpuflow_torch.kernels import (fb_kernels, hs_stencil, irls_stencil,
+                                       sepconv)
+
+    hs_stencil.LAUNCHES = 0
+    irls_stencil.LAUNCHES = 0
+    sepconv.LAUNCHES = 0
+    for k in fb_kernels.LAUNCHES:
+        fb_kernels.LAUNCHES[k] = 0
+
+
+def read_counts() -> dict:
+    from tpuflow_torch.kernels import (fb_kernels, hs_stencil, irls_stencil,
+                                       sepconv)
+
+    return {"hs_sweeps": hs_stencil.LAUNCHES,
+            "irls_sweeps": irls_stencil.LAUNCHES,
+            "sep_conv2d_valid": sepconv.LAUNCHES, **fb_kernels.LAUNCHES}
+
+
+def counted(path: str, fn, expected, totals: dict):
+    """Run fn() with the counters zeroed just before and read just after;
+    ``expected`` maps kernel -> launches (missing kernels: 0), or is a
+    function of fn's result that returns that map."""
+    import torch
+
+    reset_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    got = read_counts()
+    want = expected(result) if callable(expected) else expected
+    want = {k: want.get(k, 0) for k in KERNELS}
+    log("main", path=path, launches=json.dumps(got))
+    if got != want:
+        raise AssertionError(f"{path}: launches {got}, expected {want}")
+    for k, n in got.items():
+        totals[k] = totals.get(k, 0) + n
+    return result
+
+
+def fb_expected(cfg, blur_kernel=False, pairs=1) -> dict:
+    """Launches of one Farneback call: the pyramid blur (two sepconvs per
+    level above 0), two expansions per level, and per iteration either
+    the five-channel box (five sepconvs) or one blur-solve."""
+    _, levels, _, iterations, _, _ = cfg
+    solves = iterations * levels
+    return {"sep_conv2d_valid": pairs * (2 * (levels - 1)
+                                         + (0 if blur_kernel else 5 * solves)),
+            "fb_poly_expansion": pairs * 2 * levels,
+            "fb_blur_solve": pairs * (solves if blur_kernel else 0)}
 
 
 def ba_call(prev, nxt, blocks=None):
@@ -260,34 +473,71 @@ def ba_call(prev, nxt, blocks=None):
                                      blocks=blocks)
 
 
+def fb_call(frames, cfg, **kw):
+    from tpuflow_torch.solvers import calc_optical_flow_farneback
+
+    return calc_optical_flow_farneback(*frames, None, *cfg, **kw)
+
+
+def stream_frames():
+    from tpuflow_torch.pipeline.streaming import SyntheticSource
+
+    w, h = STREAM_WH
+    return list(SyntheticSource(n_frames=STREAM_FRAMES, h=h, w=w, dx=2.0,
+                                dy=1.0))
+
+
+def stream_call(frames, device):
+    from tpuflow_torch.pipeline.streaming import dense_flow_stream
+
+    return list(dense_flow_stream(frames, STREAM_WH, device=device))
+
+
 def phase_main(dev):
-    """The main path once, counters zeroed just before and read just after."""
-    import torch
-
+    """Each main path once, counters zeroed just before and read just
+    after. Returns the totals per kernel and each path's inputs/outputs."""
     from tpuflow_torch import solvers
-    from tpuflow_torch.kernels import hs_stencil, irls_stencil
+    from tpuflow_torch.kernels import hs_stencil
 
+    totals = {}
     hs_frames = f32(dev, *frames_1080p())
+    hs_flow = counted(
+        "horn_schunck", lambda: solvers.horn_schunck(
+            *hs_frames, HS_WINDOW, HS_ITERS, HS_ALPHA),
+        {"hs_sweeps": math.ceil(HS_ITERS / hs_stencil.DEFAULT_FUSE)}, totals)
+
     ba_frames = f32(dev, *frames_kitti())
     blocks = []
-    hs_stencil.LAUNCHES = 0
-    irls_stencil.LAUNCHES = 0
-    hs_flow = solvers.horn_schunck(*hs_frames, HS_WINDOW, HS_ITERS, HS_ALPHA)
-    ba_flow = ba_call(*ba_frames, blocks=blocks)
-    torch.cuda.synchronize()
-    launches = {"hs_sweeps": hs_stencil.LAUNCHES,
-                "irls_sweeps": irls_stencil.LAUNCHES}
-    hs_expected = math.ceil(HS_ITERS / hs_stencil.DEFAULT_FUSE)
-    log("main", hs_launches=launches["hs_sweeps"], hs_expected=hs_expected,
-        irls_launches=launches["irls_sweeps"], ba_blocks=blocks)
-    if launches["hs_sweeps"] != hs_expected:
-        raise AssertionError(f"HS kernel launched {launches['hs_sweeps']} "
-                             f"times, expected {hs_expected}")
-    if launches["irls_sweeps"] != sum(blocks) or not blocks:
-        raise AssertionError(f"IRLS kernel launched "
-                             f"{launches['irls_sweeps']} times for blocks "
-                             f"{blocks}")
-    return launches, (hs_frames, hs_flow), (ba_frames, ba_flow, blocks)
+
+    def ba_expected(_):
+        if not blocks:
+            raise AssertionError("BA ran no block")
+        return {"irls_sweeps": sum(blocks)}
+
+    ba_flow = counted("optical_flow_pyramid_fast",
+                      lambda: ba_call(*ba_frames, blocks=blocks),
+                      ba_expected, totals)
+    log("main", ba_blocks=blocks)
+
+    fb_runs = []
+    fb_frames = {k: f32(dev, *make()) for k, make in FB_FRAMES.items()}
+    for name, cfg, frames in FB_CASES:
+        flow = counted(f"farneback_{name}",
+                       lambda: fb_call(fb_frames[frames], cfg),
+                       fb_expected(cfg), totals)
+        fb_runs.append((name, cfg, {}, fb_frames[frames], flow))
+    flow = counted("farneback_stream_1080p_blur_kernel",
+                   lambda: fb_call(fb_frames["1080p"], FB_STREAM,
+                                   use_blur_kernel=True),
+                   fb_expected(FB_STREAM, blur_kernel=True), totals)
+    fb_runs.append(("stream_1080p_blur_kernel", FB_STREAM,
+                    {"use_blur_kernel": True}, fb_frames["1080p"], flow))
+
+    frames = stream_frames()
+    stream = counted("dense_flow_stream", lambda: stream_call(frames, dev),
+                     fb_expected(FB_STREAM, pairs=STREAM_FRAMES - 1), totals)
+    return (totals, (hs_frames, hs_flow), (ba_frames, ba_flow, blocks),
+            fb_runs, (frames, stream))
 
 
 def phase_hs(frames, flow) -> None:
@@ -339,6 +589,61 @@ def phase_ba(frames, flow, blocks) -> None:
         card_fps=1e3 / ms, cpu_f32_ms_per_frame=cpu_ms)
 
 
+def check_flow_vs_cpu(name: str, flow, ref) -> float:
+    """Card flow vs the float32 CPU run within PATH_TOL; past it, say
+    where the largest difference is before failing."""
+    err, mag = max_err(list(zip(flow, ref)))
+    if not err <= PATH_TOL * max(1.0, mag):
+        for comp, a, b in zip("uv", flow, ref):
+            d = (a.cpu() - b).abs()
+            y, x = divmod(int(d.argmax()), d.shape[1])
+            print(f"    {name}: {comp} max|d|={float(d.max())} at (y={y}, "
+                  f"x={x}) of {tuple(d.shape)}; card {float(a[y, x])}, CPU "
+                  f"{float(b[y, x])}; pixels with |d| > 1e-3: "
+                  f"{int((d > 1e-3).sum())}", flush=True)
+    return check_close(f"{name} card vs CPU", list(zip(flow, ref)), PATH_TOL)
+
+
+def phase_fb(runs, stream) -> None:
+    """Each Farneback run: finite, of the frame's shape, equal to the same
+    call on float32 CPU copies within PATH_TOL; card and CPU times."""
+    import torch
+
+    for name, cfg, kw, frames, flow in runs:
+        shape = tuple(frames[0].shape)
+        if tuple(flow[0].shape) != shape or not all(
+                bool(torch.isfinite(f).all()) for f in flow):
+            raise AssertionError(f"farneback {name}: flow is not finite of "
+                                 f"shape {shape}")
+        cpu = [f.cpu() for f in frames]
+        ref = []
+        cpu_ms = host_ms(lambda: ref.extend(fb_call(cpu, cfg, **kw)))
+        err = check_flow_vs_cpu(f"farneback {name}", flow, ref)
+        ms = cuda_ms(lambda: fb_call(frames, cfg, **kw))
+        torch.cuda.synchronize()
+        log("fb", config=name, params=cfg, shape=shape,
+            max_abs_err_vs_cpu=err, max_abs_u=float(flow[0].abs().max()),
+            card_ms_per_frame=ms, card_fps=1e3 / ms,
+            chip_host_cpu_f32_ms_per_frame=cpu_ms)
+
+    frames, out = stream
+    if len(out) != STREAM_FRAMES - 1:
+        raise AssertionError(f"dense_flow_stream yielded {len(out)} pairs")
+    cpu_out = stream_call(frames, torch.device("cpu"))
+    err = 0.0
+    for (g, u, v), (gc, uc, vc) in zip(out, cpu_out):
+        if u.shape != STREAM_WH[::-1] or not (np.isfinite(u).all()
+                                             and np.isfinite(v).all()):
+            raise AssertionError("dense_flow_stream: flow is not finite of "
+                                 f"shape {STREAM_WH[::-1]}")
+        err = max(err, check_flow_vs_cpu(
+            "dense_flow_stream", [torch.from_numpy(u), torch.from_numpy(v)],
+            [torch.from_numpy(uc), torch.from_numpy(vc)]))
+    log("fb", config="dense_flow_stream", pairs=len(out),
+        shape=STREAM_WH[::-1], max_abs_err_vs_cpu=err,
+        mean_u=float(np.mean([o[1].mean() for o in out])))
+
+
 def main() -> None:
     sys.path.insert(0, str(REPO))
     name = phase_device()
@@ -347,15 +652,24 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     numbers = phase_kernels(dev)
-    launches, hs, ba = phase_main(dev)
+    launches, hs, ba, fb_runs, stream = phase_main(dev)
     phase_hs(*hs)
     phase_ba(*ba)
+    phase_fb(fb_runs, stream)
     kernels = []
     for kname, source, replaces in (
             ("hs_sweeps", "tpuflow_torch/csrc/hs_stencil.cu",
              "tpuflow/kernels/hs_stencil.py:706"),
             ("irls_sweeps", "tpuflow_torch/csrc/irls_stencil.cu",
-             "tpuflow/kernels/irls_stencil.py:391")):
+             "tpuflow/kernels/irls_stencil.py:391"),
+            ("sep_conv2d_valid", "tpuflow_torch/csrc/sepconv.cu",
+             "tpuflow/kernels/sepconv.py:100"),
+            ("fb_poly_expansion", "tpuflow_torch/csrc/fb_kernels.cu",
+             "tpuflow/kernels/fb_kernels.py:203"),
+            ("fb_blur_solve", "tpuflow_torch/csrc/fb_kernels.cu",
+             "tpuflow/kernels/fb_kernels.py:93")):
+        if launches.get(kname, 0) < 1:
+            raise AssertionError(f"{kname} was not launched on the main path")
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": launches[kname], **numbers[kname]})

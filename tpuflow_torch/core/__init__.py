@@ -1,1 +1,2 @@
-"""Border policies and configuration (counterpart of :mod:`tpuflow.core`)."""
+"""Border policies, configuration, color and resampling (counterpart of
+:mod:`tpuflow.core`)."""

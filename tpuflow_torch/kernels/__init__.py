@@ -1,5 +1,6 @@
-"""Hand-written Hopper kernels for the hot sweep loops, each beside its
-plain PyTorch version (counterpart of :mod:`tpuflow.kernels`).
+"""Hand-written Hopper kernels for the hot loops (HS and IRLS sweeps,
+separable correlation, Farneback's expansion and blur-solve), each beside
+its plain PyTorch version (counterpart of :mod:`tpuflow.kernels`).
 
 A wrapper takes the plain version for CPU tensors and launches its CUDA
 kernel for CUDA tensors, or raises; it never falls back. The kernels are

@@ -1,0 +1,113 @@
+"""VALID separable correlation: the CUDA kernel and its plain version.
+
+Counterpart of ``tpuflow/kernels/sepconv.py::sep_conv2d_valid_pallas``.
+On a pre-padded (Hp, Wp) image it correlates the rows with ``ky``, then
+the columns with ``kx``, and returns the (Hp - len(ky) + 1,
+Wp - len(kx) + 1) VALID result; the caller pads for its border policy
+(:func:`tpuflow_torch.ops.filters.sep_conv2d`).
+
+:func:`sep_conv2d_valid` takes the taps on the host. They are rounded
+once to the image's dtype (float32 for the kernel), and both versions
+multiply by the rounded values and add the terms in tap order, so on the
+card the kernel (``csrc/sepconv.cu``, one launch for both passes) matches
+:func:`sep_conv2d_valid_plain` bitwise. A CPU tensor takes the plain
+version; a CUDA tensor takes the kernel or raises. The TPU kernel's
+log2-doubling sum for uniform taps is not ported: every tap list runs the
+same direct loop.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from tpuflow_torch.kernels import _build
+
+# Launches of the CUDA kernel in this process (never the plain version).
+LAUNCHES = 0
+# Output tile of one block and its thread count. The block holds the
+# input window (TILE_H + nky - 1) x (TILE_W + nkx - 1) and the row-pass
+# intermediate TILE_H x (TILE_W + nkx - 1) in shared memory.
+TILE_H = 32
+TILE_W = 64
+THREADS = 256
+# Taps per axis the kernel's parameter struct holds (csrc/sepconv.cu);
+# smem_bytes(MAX_TAPS, MAX_TAPS) fits one block.
+MAX_TAPS = 128
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("sepconv")
+    lib.sep_conv2d_valid_launch.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+        + [ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_int] * 3
+        + [ctypes.c_void_p])
+    lib.sep_conv2d_valid_launch.restype = ctypes.c_int
+    lib.sep_conv2d_valid_error_string.argtypes = [ctypes.c_int]
+    lib.sep_conv2d_valid_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def smem_bytes(nky: int, nkx: int) -> int:
+    return 4 * (TILE_H + nky - 1 + TILE_H) * (TILE_W + nkx - 1)
+
+
+def host_taps(taps, dtype: torch.dtype) -> np.ndarray:
+    """1-D host taps rounded once to ``dtype`` (float32 or float64)."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    return np.asarray(taps, dtype=np.float64).reshape(-1).astype(np_dtype)
+
+
+def _pass(a: torch.Tensor, taps: np.ndarray, axis: int,
+          n_out: int) -> torch.Tensor:
+    """One VALID correlation pass along ``axis``, terms added in tap order."""
+    out = None
+    for d, t in enumerate(taps):
+        term = a.narrow(axis, d, n_out) * float(t)
+        out = term if out is None else out + term
+    return out
+
+
+def sep_conv2d_valid_plain(padded: torch.Tensor, ky: np.ndarray,
+                           kx: np.ndarray) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch (``ky``/``kx`` as given by
+    :func:`host_taps`)."""
+    hp, wp = padded.shape
+    rows = _pass(padded, ky, 0, hp - len(ky) + 1)
+    return _pass(rows, kx, 1, wp - len(kx) + 1)
+
+
+def sep_conv2d_valid(padded: torch.Tensor, ky, kx) -> torch.Tensor:
+    """VALID separable correlation of a pre-padded (Hp, Wp) image.
+
+    CPU tensors take :func:`sep_conv2d_valid_plain`; a CUDA tensor
+    (contiguous float32) takes one launch of the CUDA kernel, or raises.
+    """
+    global LAUNCHES
+    _build.check_fields("sep_conv2d_valid", padded)
+    ky = host_taps(ky, padded.dtype)
+    kx = host_taps(kx, padded.dtype)
+    hp, wp = padded.shape
+    if len(ky) < 1 or len(kx) < 1 or hp < len(ky) or wp < len(kx):
+        raise ValueError(f"sep_conv2d_valid: taps ({len(ky)}, {len(kx)}) do "
+                         f"not fit the padded image ({hp}, {wp})")
+    if padded.device.type == "cpu":
+        return sep_conv2d_valid_plain(padded, ky, kx)
+    if max(len(ky), len(kx)) > MAX_TAPS:
+        raise ValueError(f"sep_conv2d_valid: the CUDA kernel takes at most "
+                         f"{MAX_TAPS} taps per axis, got ({len(ky)}, "
+                         f"{len(kx)})")
+    lib = _lib()
+    out = torch.empty((hp - len(ky) + 1, wp - len(kx) + 1),
+                      dtype=padded.dtype, device=padded.device)
+    with torch.cuda.device(padded.device):
+        rc = lib.sep_conv2d_valid_launch(
+            padded.data_ptr(), out.data_ptr(), hp, wp,
+            ky.ctypes.data, len(ky), kx.ctypes.data, len(kx),
+            TILE_H, TILE_W, THREADS,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(lib, "sep_conv2d_valid", rc)
+    LAUNCHES += 1
+    return out

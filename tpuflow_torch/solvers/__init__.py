@@ -1,4 +1,4 @@
-"""Dense variational solvers (counterpart of :mod:`tpuflow.solvers`).
+"""Dense flow solvers (counterpart of :mod:`tpuflow.solvers`).
 
 As in tpuflow, the package exports the solver functions by name, so
 ``tpuflow_torch.solvers.horn_schunck`` is the function.
@@ -18,6 +18,9 @@ from tpuflow_torch.solvers.black_anandan import (  # noqa: F401
 )
 from tpuflow_torch.solvers.black_anandan_fast import (  # noqa: F401
     optical_flow_pyramid_fast,
+)
+from tpuflow_torch.solvers.farneback import (  # noqa: F401
+    calc_optical_flow_farneback,
 )
 from tpuflow_torch.solvers.mestimators import (  # noqa: F401
     geman_mcclure_psi,

@@ -40,6 +40,7 @@ from tpuflow_torch.pyramid import (
     pyramider,
 )
 from tpuflow_torch.solvers.mestimators import geman_mcclure_psi, geman_mcclure_rho
+from tpuflow_torch.utils.numerics import true_div
 
 LAMBDA_D = 5.0
 LAMBDA_S = 1.0
@@ -192,8 +193,8 @@ def coarse_to_fine(it_img, itp1_img, max_int, param, iter_max, iter_scale,
     returns (u, v)."""
     if param is None:
         param = MultipleMotionParam()
-    it_levels = pyramider(it_img / max_int, param.level)
-    itp1_levels = pyramider(itp1_img / max_int, param.level)
+    it_levels = pyramider(true_div(it_img, max_int), param.level)
+    itp1_levels = pyramider(true_div(itp1_img, max_int), param.level)
     max_level = len(it_levels) - 1  # may stop early on tiny images
     dt_levels = dt_pyramid(it_levels, itp1_levels)
     grad_levels = grad_pyramid(it_levels)
