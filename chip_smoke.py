@@ -7,17 +7,25 @@ Phases, each printing one line of its own numbers:
 
 1. device  — the card's name and power limit; TF32 off for the plain
    float32 references.
-2. build   — builds the four CUDA sources of ``tpuflow_torch/csrc`` (one
+2. build   — builds the six CUDA sources of ``tpuflow_torch/csrc`` (one
    nvcc each, all started together, into ``build/tpuflow_torch``) and
    reports seconds and ptxas usage.
-3. kernels — each of the five kernels against its plain PyTorch version
+3. kernels — each of the seven kernels against its plain PyTorch version
    on the card, on float32 inputs from a numpy seed, with both versions'
-   device times (``cuda_ms(..., device_only=True)``): HS 100 sweeps at 1080x1920 and IRLS 512 sweeps at
-   376x1240 (each at its main-path fuse and at a fuse that leaves a
-   remainder) and both at 375x1242 (the ragged KITTI size); sepconv at
-   1080x1920 with 48 and 17 taps and at 375x1242 with 64; poly expansion
-   at 1080x1920 with n = 8 and 5 and at 375x1242; blur-solve at 1080x1920
-   with winsize 48 and at 375x1242 with 64.
+   device times (``cuda_ms(..., device_only=True)``), the least time the
+   card could take for the same work (``bound_ms``: the bytes over 3.35
+   TB/s or the float32 operations over 67 TFLOP/s, whichever is larger)
+   and, for sepconv and poly expansion, one ``F.conv2d`` computing the
+   same function (``library_ms``; the port never calls it): HS 100
+   sweeps at 1080x1920 and IRLS 512 sweeps at 376x1240 (each at its
+   main-path fuse and at a fuse that leaves a remainder) and both at
+   375x1242 (the ragged KITTI size); sepconv at 1080x1920 with 48 and 17
+   taps and at 375x1242 with 64; poly expansion at 1080x1920 with n = 8
+   and 5 and at 375x1242; blur-solve at 1080x1920 with winsize 48 and at
+   375x1242 with 64; the gated IRLS 256 sweeps at 376x1240 and 375x1242,
+   fuse 16 and 15, one and two directions, on the flagship scene's own
+   refine inputs; the mean-shift filter at R = 20 for one iteration at
+   376x1240 and eight on a 96x160 crop.
 4. main    — each main path runs once through the public entry points,
    with every launch counter set to 0 just before it and read just after;
    each counter must show its kernel ran exactly as often as that path
@@ -26,18 +34,30 @@ Phases, each printing one line of its own numbers:
    (5 levels, 512 sweeps per level, fuse 16); the four Farneback configs
    of bench.py (streaming, pair demo, multi-level demo on small and on
    large motion) through ``solvers.calc_optical_flow_farneback``; the
-   streaming config again with ``use_blur_kernel=True``; and
-   ``pipeline.streaming.dense_flow_stream`` over SyntheticSource frames.
-   The frames are bench.py's ``_frames_1080p``, ``_frames_kitti`` and
-   ``_multioctave_frames``.
-5. hs, ba, fb — the main-path results are finite, of the right shape, and
-   agree with the same calls on float32 CPU copies (which take the plain
-   versions); the BA block counts per level agree; end-to-end times on the
-   card beside the chip host's CPU time.
+   streaming config again with ``use_blur_kernel=True``;
+   ``pipeline.streaming.dense_flow_stream`` over SyntheticSource frames;
+   and the flagship ``solvers.optical_flow_block_matching`` with its
+   defaults (376x1240, search 61, mean-shift (20, 16/255), subpixel 2,
+   2048 sweeps) over three frames in one ``BMFlowState``: pair 1 cold and
+   unidirectional (two filter launches), pair 2 bidirectional (one),
+   each with the gated kernel's launches as its refine counted them. The
+   frames are bench.py's ``_frames_1080p``, ``_frames_kitti`` and
+   ``_multioctave_frames``, and for the flagship a seeded pan over ~1,800
+   shaded Voronoi cells (``voronoi_frames``).
+5. hs, ba, fb, bm — the main-path results are finite, of the right shape,
+   and agree with the same calls on float32 CPU copies (which take the
+   plain versions); the BA block counts per level agree; end-to-end
+   times on the card beside the chip host's CPU time. The flagship
+   reports its region count, the EPE of its block-matching field against
+   the known pan, the compensation PSNR against the unmoved frame and ms
+   per pair; its CPU check is the same three-frame run on a 96x160 crop
+   (search 15, 256 sweeps): equal labels, region counts, BM winners and
+   time directions, and u, v within PATH_TOL.
 
-Before the last line it prints the kernels as JSON; the last line is
-``{"ok": true, "device": {...}}``. A failed phase raises: the script exits
-non-zero and prints no ``ok`` line. Without a CUDA card it exits 1.
+Before the last line it prints the total seconds and the kernels as JSON;
+the last line is ``{"ok": true, "device": {...}}``. A failed phase
+raises: the script exits non-zero and prints no ``ok`` line. Without a
+CUDA card it exits 1.
 """
 
 from __future__ import annotations
@@ -70,6 +90,20 @@ FB_CASES = (("stream_1080p", FB_STREAM, "1080p"),
             ("demo3_largemotion_1080p", FB_DEMO3, "largemotion"))
 # dense_flow_stream: SyntheticSource frames at the demo's working size.
 STREAM_FRAMES, STREAM_WH = 4, (640, 480)
+# The flagship (optical_flow_block_matching's defaults) on a pan of
+# shaded Voronoi cells: cell count, pan per frame (dy, dx), noise per
+# frame (the third noisier, so the middle frame's two directions never
+# tie); the CPU check's crop, search range and sweeps; the kernel rows'
+# sweeps and crop.
+BM_SHAPE, BM_CELLS, BM_PAN = (376, 1240), 1800, (2, 5)
+BM_NOISE = (1.0, 1.0, 2.5)
+BM_CROP = (slice(100, 196), slice(400, 560))
+BM_CROP_SEARCH, BM_CROP_ITERS = 15, 256
+GATED_SWEEPS, GATED_FUSE = 256, 16
+MS_R, MS_KI = 20, 16.0 / 255.0
+# Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and
+# float32 operations/s outside the tensor cores.
+PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
 # Tolerances, as max|d| <= TOL * max(1, max|reference|).
 # Kernel vs its plain version on the card: both compute in float32 and
 # round after every operation (the kernels are built with -fmad=false and
@@ -147,6 +181,88 @@ def host_ms(fn, reps: int = 1) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: each input byte read and each
+    output byte written once at the HBM rate, or the float32 operations
+    at the peak rate, whichever is longer."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_F32_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# Operation counts: the float32 adds, multiplies, divisions and square
+# roots each kernel's plain version performs (each counted as one), for
+# the call the row times.
+
+
+def hs_bound(shape, sweeps, window):
+    # Per pixel and sweep: two separable box sums ((W-1) + (W-1) adds and
+    # the 1/W^2 multiply each), the update (5) and the two corrections (4).
+    px = shape[0] * shape[1]
+    per = 2 * (2 * (window - 1) + 1) + 9
+    return bound(8 * 4 * px, px * sweeps * per)
+
+
+def irls_bound(shape, sweeps):
+    # Per pixel: the data term and its psi (10) and the two updates (12);
+    # per in-frame neighbour pair and direction: u - un, psi, the add (8)
+    # for each of u and v.
+    h, w = shape
+    pairs = 2 * (h * (w - 1) + (h - 1) * w)
+    return bound(7 * 4 * h * w, sweeps * (22 * h * w + 16 * pairs))
+
+
+def sep_bound(hp, wp, nky, nkx):
+    ho, wo = hp - nky + 1, wp - nkx + 1
+    ops = ho * wp * (2 * nky - 1) + ho * wo * (2 * nkx - 1)
+    return bound(4 * (hp * wp + ho * wo), ops)
+
+
+def poly_bound(hp, wp, k, ginv):
+    # Three row passes, six column passes, then each output row of G^-1
+    # over its nonzero coefficients.
+    ho, wo = hp - k + 1, wp - k + 1
+    combine = sum(2 * int(np.count_nonzero(r)) - 1 for r in ginv
+                  if np.count_nonzero(r))
+    ops = (3 * ho * wp + 6 * ho * wo) * (2 * k - 1) + ho * wo * combine
+    return bound(4 * (hp * wp + 5 * ho * wo), ops)
+
+
+def blur_bound(hp, wp, win):
+    # Five box sums (rows, columns, the 1/win^2 multiply), then the 2x2
+    # solve (det 3, u 4, v 4).
+    ho, wo = hp - win + 1, wp - win + 1
+    ops = 5 * (ho * wp * (win - 1) + ho * wo * win) + 11 * ho * wo
+    return bound(4 * (5 * hp * wp + 2 * ho * wo), ops)
+
+
+def gated_bound(labels: np.ndarray, sweeps, batch):
+    # Per pixel: the data term and psi (10), its norm (4), the two updates
+    # (12); per neighbour in the frame and in the same region (as this
+    # label map has them): the cosine and weight (9; the neighbour's norm
+    # is its own pixel's, already counted), and for each of u and v the
+    # difference, psi, weight and add (9).
+    px = labels.size
+    same = 2 * (int((labels[:, 1:] == labels[:, :-1]).sum())
+                + int((labels[1:] == labels[:-1]).sum()))
+    ops = sweeps * batch * (26 * px + 27 * same)
+    return bound(4 * px * (5 * batch + 3), ops)
+
+
+def ms_bound(shape, R, iters):
+    # Only offsets within R of the query's drift can pass the spatial test:
+    # the lattice points of a disc of radius R (1,257 at R = 20; around a
+    # fractional drift the count differs by a few). Per query, iteration
+    # and such offset: the spatial distance (3), the colour distance (8)
+    # and the two tests (2); per disc row the dy term (2). The sums of the
+    # points that pass depend on the data and are not counted, so this
+    # bound is low by up to 6 per offset.
+    px = shape[0] * shape[1]
+    disc = sum(2 * math.isqrt(R * R - dy * dy) + 1 for dy in range(-R, R + 1))
+    return bound(4 * 8 * px, px * iters * (13 * disc + 2 * (2 * R + 1)))
+
+
 def frames_1080p():
     """bench.py::_frames_1080p."""
     rng = np.random.default_rng(0)
@@ -192,6 +308,41 @@ def frames_largemotion():
     return prev, nxt
 
 
+def voronoi_frames(shape=BM_SHAPE,
+                   cells_per_px=BM_CELLS / (BM_SHAPE[0] * BM_SHAPE[1]),
+                   pan=BM_PAN, shade=1.0, seed=7):
+    """Three RGB frames (float, 0-255) of a pan over shaded Voronoi cells
+    (by default BM_CELLS of them at BM_SHAPE): each cell a random colour
+    with a random linear shading (gradient std ``shade`` per px), noise of
+    std ``BM_NOISE[k]`` on frame k, which shows the scene moved by k * pan.
+    The scene is the frame plus a border of 4 * max|pan|. Returns (frames,
+    cells) with the middle frame's cell map (int32), a stand-in for its
+    labels. The CPU tests draw their small scenes from here too."""
+    from scipy.spatial import cKDTree
+
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    pad = 4 * max(abs(p) for p in pan)
+    H, W = h + 2 * pad, w + 2 * pad
+    n_all = int(round(cells_per_px * H * W))
+    pts = rng.uniform(0, 1, (n_all, 2)) * [H, W]
+    cols = rng.uniform(40, 215, (n_all, 3))
+    grad = rng.normal(0, 1.0, (n_all, 2)) * shade
+    yy, xx = np.mgrid[0:H, 0:W]
+    cell = cKDTree(pts).query(np.stack([yy.ravel(), xx.ravel()], -1))[1]
+    cell = cell.reshape(H, W)
+    img = cols[cell] + ((yy - pts[cell, 0]) * grad[cell, 0]
+                        + (xx - pts[cell, 1]) * grad[cell, 1])[..., None]
+    frames = []
+    for k in range(3):
+        dy, dx = pad + k * pan[0], pad + k * pan[1]
+        f = img[dy : dy + h, dx : dx + w] + rng.normal(0, BM_NOISE[k],
+                                                        (h, w, 3))
+        frames.append(np.clip(f, 0, 255))
+    dy, dx = pad + pan[0], pad + pan[1]
+    return frames, cell[dy : dy + h, dx : dx + w].astype(np.int32)
+
+
 FB_FRAMES = {"1080p": frames_1080p, "kitti": frames_kitti,
              "largemotion": frames_largemotion}
 
@@ -226,14 +377,15 @@ def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from tpuflow_torch.kernels import (_build, fb_kernels, hs_stencil,
-                                       irls_stencil, sepconv)
+                                       irls_stencil, ms_filter, sepconv)
 
-    mods = {"hs_stencil": hs_stencil, "irls_stencil": irls_stencil,
-            "sepconv": sepconv, "fb_kernels": fb_kernels}
+    mods = {"hs_stencil": hs_stencil._lib, "irls_stencil": irls_stencil._lib,
+            "irls_gated": irls_stencil._lib_gated, "sepconv": sepconv._lib,
+            "fb_kernels": fb_kernels._lib, "ms_filter": ms_filter._lib}
 
     def build(name):
         t0 = time.perf_counter()
-        mods[name]._lib()
+        mods[name]()
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -275,9 +427,12 @@ def well_conditioned_m(shape, seed):
                      a12 * db1 + a22 * db2])
 
 
-def kernel_row(out, name, shape, fn, plain, **what):
-    """Check fn() against plain() on the card, time both, log, and keep
-    the first (main-path) shape's numbers in out[name]."""
+def kernel_row(out, name, shape, fn, plain, work, library=None,
+               plain_reps=3, **what):
+    """Check fn() against plain() on the card, time both (and the library
+    call, where there is one), log beside the bound of ``work`` (a
+    :func:`bound` dict), and keep the first (main-path) shape's numbers
+    in out[name]."""
     import torch
 
     got, ref = fn(), plain()
@@ -285,11 +440,15 @@ def kernel_row(out, name, shape, fn, plain, **what):
         got, ref = (got,), (ref,)
     err = check_close(f"{name} {shape} {what}", list(zip(got, ref)),
                       KERNEL_TOL)
+    del got, ref
     ms = cuda_ms(fn, device_only=True)
-    plain_ms = cuda_ms(plain, reps=3, device_only=True)
-    log("kernels", kernel=name, shape=shape, **what, max_abs_err=err, ms=ms,
-        plain_ms=plain_ms)
-    out.setdefault(name, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    plain_ms = cuda_ms(plain, reps=plain_reps, device_only=True)
+    library_ms = None if library is None else cuda_ms(library,
+                                                      device_only=True)
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **work,
+           "library_ms": library_ms}
+    log("kernels", kernel=name, shape=shape, **what, **row)
+    out.setdefault(name, row)
     torch.cuda.synchronize()
     return err
 
@@ -299,10 +458,11 @@ def phase_kernels(dev) -> dict:
     shapes and at the ragged KITTI size; both versions timed at each.
     Returns the numbers at the first (main-path) shape of each kernel."""
     import torch
+    import torch.nn.functional as F
 
     from tpuflow_torch.core import borders as bd
     from tpuflow_torch.kernels import (fb_kernels, hs_stencil, irls_stencil,
-                                       sepconv)
+                                       ms_filter, sepconv)
     from tpuflow_torch.solvers.black_anandan import (
         LAMBDA_D, LAMBDA_S, SIGMA_D_L0, SIGMA_S_L0, irls_sup)
     from tpuflow_torch.solvers.farneback import _poly_exp_matrices
@@ -323,10 +483,11 @@ def phase_kernels(dev) -> dict:
             *fields, HS_WINDOW, HS_ITERS, hs_fuse), device_only=True)
         plain_ms = cuda_ms(lambda: hs_stencil.hs_sweeps_plain(
             *fields, HS_WINDOW, HS_ITERS), reps=3, device_only=True)
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               **hs_bound(shape, HS_ITERS, HS_WINDOW), "library_ms": None}
         log("kernels", kernel="hs_sweeps", shape=shape, sweeps=HS_ITERS,
-            fuse=hs_fuse, ms=ms, plain_ms=plain_ms)
-        out.setdefault("hs_sweeps", {"max_abs_err": err, "ms": ms,
-                                     "plain_ms": plain_ms})
+            fuse=hs_fuse, **row)
+        out.setdefault("hs_sweeps", row)
         torch.cuda.synchronize()
 
     consts = (LAMBDA_D, LAMBDA_S, SIGMA_D_L0, SIGMA_S_L0)
@@ -355,13 +516,15 @@ def phase_kernels(dev) -> dict:
                 sweeps=BA_ITER_MAX, fuse=fuse, max_abs_err=err)
         ms = cuda_ms(lambda: run(BA_FUSE), device_only=True)
         plain_ms = cuda_ms(plain, reps=3, device_only=True)
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               **irls_bound(shape, BA_ITER_MAX), "library_ms": None}
         log("kernels", kernel="irls_sweeps", shape=shape, sweeps=BA_ITER_MAX,
-            fuse=BA_FUSE, ms=ms, plain_ms=plain_ms)
-        out.setdefault("irls_sweeps", {"max_abs_err": err, "ms": ms,
-                                       "plain_ms": plain_ms})
+            fuse=BA_FUSE, **row)
+        out.setdefault("irls_sweeps", row)
         torch.cuda.synchronize()
 
     # sepconv: Farneback's box (48, 64 uniform taps) and the poly taps (17).
+    # Library call: one 2-D correlation with the outer product ky x kx.
     for shape, n in ((HS_SHAPE, 48), (HS_SHAPE, 17), (RAGGED_SHAPE, 64)):
         rng = np.random.default_rng(n)
         padded, = f32(dev, rng.uniform(0, 255, (shape[0] + n - 1,
@@ -369,13 +532,17 @@ def phase_kernels(dev) -> dict:
         box = np.full(n, 1.0 / n)
         gauss = np.exp(-np.linspace(-2.0, 2.0, n) ** 2)
         gauss /= gauss.sum()
+        ky, kx = (sepconv.host_taps(t, torch.float32) for t in (box, gauss))
+        k2, = f32(dev, np.outer(ky, kx)[None, None])
         kernel_row(out, "sep_conv2d_valid", shape,
                    lambda: sepconv.sep_conv2d_valid(padded, box, gauss),
-                   lambda: sepconv.sep_conv2d_valid_plain(
-                       padded, sepconv.host_taps(box, torch.float32),
-                       sepconv.host_taps(gauss, torch.float32)),
+                   lambda: sepconv.sep_conv2d_valid_plain(padded, ky, kx),
+                   sep_bound(*padded.shape, n, n),
+                   library=lambda: F.conv2d(padded[None, None], k2),
                    taps=(n, n))
 
+    # Library call: one correlation with five output channels, each a G^-1
+    # row folded into the three moment tap sets.
     for shape, n, sigma in ((HS_SHAPE, 8, 1.2), (HS_SHAPE, 5, 1.2),
                             (RAGGED_SHAPE, 8, 1.6)):
         g, ginv = _poly_exp_matrices(n, sigma)
@@ -384,6 +551,13 @@ def phase_kernels(dev) -> dict:
         rows[4] *= 0.5
         taps = [sepconv.host_taps(t, torch.float32)
                 for t in (g, g * xs, g * xs * xs, rows)]
+        tg, tgx, tgxx = (t.astype(np.float64) for t in taps[:3])
+        # Moments [1, x, y, x^2, y^2, xy] as (row taps, column taps).
+        moments = ((tg, tg), (tg, tgx), (tgx, tg), (tg, tgxx), (tgxx, tg),
+                   (tgx, tgx))
+        weight, = f32(dev, np.stack([
+            sum(c * np.outer(a, b) for c, (a, b) in zip(r, moments))
+            for r in taps[3].reshape(5, 6).astype(np.float64)])[:, None])
         img, = f32(dev, np.random.default_rng(n).uniform(0, 255, shape))
         padded = bd.pad2d(img, n, bd.CLAMP)
         kernel_row(out, "fb_poly_expansion", shape,
@@ -391,6 +565,8 @@ def phase_kernels(dev) -> dict:
                                                         g * xs * xs, rows),
                    lambda: fb_kernels.fb_poly_expansion_plain(
                        padded, *taps[:3], taps[3].reshape(5, 6)),
+                   poly_bound(*padded.shape, 2 * n + 1, taps[3].reshape(5, 6)),
+                   library=lambda: F.conv2d(padded[None, None], weight),
                    n=n)
 
     for shape, winsize in ((HS_SHAPE, 48), (RAGGED_SHAPE, 64)):
@@ -400,34 +576,118 @@ def phase_kernels(dev) -> dict:
         kernel_row(out, "fb_blur_solve", shape,
                    lambda: fb_kernels.fb_blur_solve(Mp, winsize),
                    lambda: fb_kernels.fb_blur_solve_plain(Mp, winsize),
-                   winsize=winsize)
+                   blur_bound(*Mp.shape[1:], winsize), winsize=winsize)
+
+    phase_kernels_flagship(dev, out)
     return out
+
+
+def flagship_refine_inputs(dev, shape):
+    """The gated refine's inputs on the flagship scene at ``shape``: gx, gy
+    of the middle frame, its dt against both neighbours (B = 2), the cell
+    map as labels, and the reference sups."""
+    import torch
+
+    from tpuflow_torch.solvers import bm_flow
+
+    frames, cells = voronoi_frames(shape)
+    lab_l = [bm_flow._to_lab(f, 255.0)[1][..., 0].to(dev) * bm_flow.LAB_SCALE
+             for f in frames]
+    gx, gy = bm_flow.gradient_method_grad(lab_l[1])
+    its = torch.stack([bm_flow.gradient_method_dt_zero(lab_l[k], lab_l[1])
+                       for k in (0, 2)])
+    sup = bm_flow._gated_sup(gx, gy, bm_flow.LAMBDA_D, bm_flow.LAMBDA_S,
+                             bm_flow.SIGMA_D_BM, bm_flow.SIGMA_S_BM)
+    return frames, cells, gx, gy, its, sup
+
+
+def phase_kernels_flagship(dev, out) -> None:
+    """The flagship's two kernels against their plain versions: the gated
+    IRLS (GATED_SWEEPS sweeps, fuse 16 and a remainder fuse, two
+    directions and one) at the KITTI and the ragged size, on the scene's
+    own refine inputs; the mean-shift filter at R = 20, one iteration at
+    the KITTI size and eight on a crop (the plain version is ~150,000
+    eager ops per iteration), and the kernel alone at the main path's
+    eight iterations."""
+    import torch
+
+    from tpuflow_torch.kernels import irls_stencil, ms_filter
+    from tpuflow_torch.solvers import bm_flow
+
+    consts = (bm_flow.LAMBDA_D, bm_flow.LAMBDA_S, bm_flow.SIGMA_D_BM,
+              bm_flow.SIGMA_S_BM)
+    for shape in (BM_SHAPE, RAGGED_SHAPE):
+        frames, cells, gx, gy, its, sup = flagship_refine_inputs(dev, shape)
+        labels = torch.from_numpy(cells).to(dev)
+        for batch in (2, 1):
+            it = its[:batch] if batch == 2 else its[0].contiguous()
+            u0 = torch.zeros_like(it)
+
+            def run(fuse, it=it, u0=u0):
+                n_full, rem = divmod(GATED_SWEEPS, fuse)
+                a, b = u0, u0
+                for k in [fuse] * n_full + ([rem] if rem else []):
+                    a, b = irls_stencil.irls_gated_sweeps(
+                        a, b, gx, gy, it, labels, *sup, k, *consts)
+                return a, b
+
+            def plain(it=it, u0=u0):
+                return irls_stencil.irls_gated_sweeps_plain(
+                    u0, u0, gx, gy, it, labels, *sup, GATED_SWEEPS, *consts)
+
+            for fuse in (GATED_FUSE, 15):
+                kernel_row(out, "irls_gated_sweeps", shape,
+                           lambda fuse=fuse: run(fuse), plain,
+                           gated_bound(cells, GATED_SWEEPS, batch),
+                           plain_reps=1, sweeps=GATED_SWEEPS, fuse=fuse,
+                           batch=batch)
+
+    lab = bm_flow._to_lab(voronoi_frames()[0][1], 255.0)[1].to(dev)
+    crop = lab[BM_CROP].contiguous()
+    for x, iters in ((lab, 1), (crop, 8)):
+        kernel_row(out, "mean_shift_filter", tuple(x.shape[:2]),
+                   lambda x=x, iters=iters: ms_filter.mean_shift_filter(
+                       x, MS_R, MS_KI, iters),
+                   lambda x=x, iters=iters: ms_filter.mean_shift_filter_plain(
+                       x, MS_R, MS_KI, iters),
+                   ms_bound(x.shape[:2], MS_R, iters), plain_reps=1,
+                   iters=iters, R=MS_R)
+    ms = cuda_ms(lambda: ms_filter.mean_shift_filter(lab, MS_R, MS_KI, 8),
+                 reps=3, device_only=True)
+    log("kernels", kernel="mean_shift_filter", shape=BM_SHAPE, iters=8,
+        R=MS_R, ms=ms, **ms_bound(BM_SHAPE, MS_R, 8))
+    torch.cuda.synchronize()
 
 
 # -- the main paths, each with its launch counts ------------------------------
 
 KERNELS = ("hs_sweeps", "irls_sweeps", "sep_conv2d_valid",
-           "fb_poly_expansion", "fb_blur_solve")
+           "fb_poly_expansion", "fb_blur_solve", "irls_gated_sweeps",
+           "mean_shift_filter")
 
 
 def reset_counts() -> None:
     from tpuflow_torch.kernels import (fb_kernels, hs_stencil, irls_stencil,
-                                       sepconv)
+                                       ms_filter, sepconv)
 
     hs_stencil.LAUNCHES = 0
     irls_stencil.LAUNCHES = 0
+    irls_stencil.LAUNCHES_GATED = 0
     sepconv.LAUNCHES = 0
+    ms_filter.LAUNCHES = 0
     for k in fb_kernels.LAUNCHES:
         fb_kernels.LAUNCHES[k] = 0
 
 
 def read_counts() -> dict:
     from tpuflow_torch.kernels import (fb_kernels, hs_stencil, irls_stencil,
-                                       sepconv)
+                                       ms_filter, sepconv)
 
     return {"hs_sweeps": hs_stencil.LAUNCHES,
             "irls_sweeps": irls_stencil.LAUNCHES,
-            "sep_conv2d_valid": sepconv.LAUNCHES, **fb_kernels.LAUNCHES}
+            "sep_conv2d_valid": sepconv.LAUNCHES, **fb_kernels.LAUNCHES,
+            "irls_gated_sweeps": irls_stencil.LAUNCHES_GATED,
+            "mean_shift_filter": ms_filter.LAUNCHES}
 
 
 def counted(path: str, fn, expected, totals: dict):
@@ -536,8 +796,42 @@ def phase_main(dev):
     frames = stream_frames()
     stream = counted("dense_flow_stream", lambda: stream_call(frames, dev),
                      fb_expected(FB_STREAM, pairs=STREAM_FRAMES - 1), totals)
+
+    from tpuflow_torch.solvers.bm_flow import BMFlowState
+
+    bm_frames, _ = voronoi_frames()
+    bm_blocks = []
+    state = BMFlowState()
+    out1, state = counted(
+        "flagship_pair1_cold", lambda: bm_pair(bm_frames, 0, state, dev,
+                                               bm_blocks),
+        lambda _: {"mean_shift_filter": 2,
+                   "irls_gated_sweeps": bm_blocks[0]}, totals)
+    out2, state = counted(
+        "flagship_pair2_bidirectional", lambda: bm_pair(bm_frames, 1, state,
+                                                        dev, bm_blocks),
+        lambda _: {"mean_shift_filter": 1,
+                   "irls_gated_sweeps": bm_blocks[1]}, totals)
+    log("main", bm_blocks=bm_blocks)
     return (totals, (hs_frames, hs_flow), (ba_frames, ba_flow, blocks),
-            fb_runs, (frames, stream))
+            fb_runs, (frames, stream), (bm_frames, (out1, out2), state))
+
+
+def bm_pair(frames, k, state, device, blocks=None, **kw):
+    """Pair k of the flagship sequence (frames k, k + 1) on ``device``."""
+    from tpuflow_torch.solvers import optical_flow_block_matching
+
+    return optical_flow_block_matching(frames[k], frames[k + 1], state=state,
+                                       device=device, blocks=blocks, **kw)
+
+
+def bm_sequence(frames, device, **kw):
+    """Both pairs from an empty state; returns the two outputs and state."""
+    from tpuflow_torch.solvers.bm_flow import BMFlowState
+
+    out1, state = bm_pair(frames, 0, BMFlowState(), device, **kw)
+    out2, state = bm_pair(frames, 1, state, device, **kw)
+    return (out1, out2), state
 
 
 def phase_hs(frames, flow) -> None:
@@ -644,7 +938,129 @@ def phase_fb(runs, stream) -> None:
         mean_u=float(np.mean([o[1].mean() for o in out])))
 
 
+def psnr(a, b) -> float:
+    """PSNR in dB of two 0-255 images, over the frame less a 16-px border
+    (where a compensated read falls outside the frame)."""
+    d = (a - b)[16:-16, 16:-16].double()
+    return float(10.0 * np.log10(255.0 ** 2 / float((d * d).mean())))
+
+
+def bm_quality(dev, frames, out, bidirectional: bool) -> dict:
+    """EPE of the BM field and of the composed flow against the known pan
+    (inverse flow: +pan toward the previous frame, -pan toward the next),
+    and the compensation PSNR of the interest frame against leaving it
+    unmoved."""
+    import torch
+
+    from tpuflow_torch.core.color import rgb_to_gray
+    from tpuflow_torch.pipeline.metrics import epe
+    from tpuflow_torch.pipeline.motion_compensation import compensate
+
+    gray = [rgb_to_gray(t) for t in f32(dev, *frames)]
+    t = torch.from_numpy(out.t.astype(np.float32)).to(dev)
+    true_u, true_v = -t * BM_PAN[1], -t * BM_PAN[0]
+    u, v, bm_u, bm_v = f32(dev, out.u, out.v, out.bm_u, out.bm_v)
+    prev_i, interest, next_i = (0, 1, 2) if bidirectional else (0, 1, 0)
+    back = t < 0
+    pred = torch.where(back, compensate(gray[prev_i], u, v, "bilinear"),
+                       compensate(gray[next_i], u, v, "bilinear"))
+    still = torch.where(back, gray[prev_i], gray[next_i])
+    return {"epe_bm": float(epe(bm_u, bm_v, true_u, true_v)),
+            "epe_uv": float(epe(u, v, true_u, true_v)),
+            "psnr_compensated": psnr(pred, gray[interest]),
+            "psnr_unmoved": psnr(still, gray[interest]),
+            "share_t_next": float((~back).float().mean())}
+
+
+def check_bm_vs_cpu(name, card, cpu) -> float:
+    """Card vs CPU flagship outputs: equal segmentation, BM winners and
+    time directions; u, v within PATH_TOL. Returns max |d| of u, v."""
+    import torch
+
+    seg, seg_cpu = card.segmentation, cpu.segmentation
+    if seg.n_regions != seg_cpu.n_regions or not np.array_equal(
+            seg.labels, seg_cpu.labels):
+        raise AssertionError(f"{name}: segmentation differs: "
+                             f"{seg.n_regions} vs {seg_cpu.n_regions} regions")
+    for f in ("bm_u", "bm_v", "t"):
+        a, b = getattr(card, f), getattr(cpu, f)
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{name}: {f} differs at "
+                                 f"{int((a != b).sum())} pixels")
+    return check_flow_vs_cpu(name, [torch.from_numpy(card.u),
+                                    torch.from_numpy(card.v)],
+                             [torch.from_numpy(cpu.u),
+                              torch.from_numpy(cpu.v)])
+
+
+def phase_bm(dev, frames, outs, state) -> None:
+    """The flagship: finite flow of the frame's shape, its quality against
+    the known pan, card vs CPU on a crop, and the card's ms per pair."""
+    import torch
+
+    for k, out in enumerate(outs):
+        fields = (out.u, out.v, out.bm_u, out.bm_v)
+        if any(f.shape != BM_SHAPE or not np.isfinite(f).all()
+               for f in fields) or not set(np.unique(out.t)) <= {-1, 1}:
+            raise AssertionError(f"flagship pair {k + 1}: flow is not "
+                                 f"finite of shape {BM_SHAPE}")
+        log("bm", pair=k + 1, bidirectional=out.bidirectional,
+            n_regions=out.segmentation.n_regions,
+            **bm_quality(dev, frames, out, out.bidirectional))
+    log("bm", n_regions_frame3=state.segmentations[0].n_regions)
+
+    crop = [f[BM_CROP] for f in frames]
+    kw = dict(search_range=BM_CROP_SEARCH, iter_max=BM_CROP_ITERS)
+    card, _ = bm_sequence(crop, dev, **kw)
+    cpu = []
+    cpu_ms = host_ms(lambda: cpu.extend(bm_sequence(crop, "cpu", **kw)[0]))
+    err = max(check_bm_vs_cpu(f"flagship crop pair {k + 1}", a, b)
+              for k, (a, b) in enumerate(zip(card, cpu)))
+    log("bm", crop=tuple(crop[0].shape[:2]), search_range=BM_CROP_SEARCH,
+        iter_max=BM_CROP_ITERS, n_regions=card[1].segmentation.n_regions,
+        max_abs_err_vs_cpu=err, chip_host_cpu_f32_ms_two_pairs=cpu_ms)
+
+    times = []
+    for _ in range(2):
+        from tpuflow_torch.solvers.bm_flow import BMFlowState
+
+        st = BMFlowState()
+        pair_ms = []
+        for k in (0, 1):
+            t0 = time.perf_counter()
+            bm_pair(frames, k, st, dev)
+            torch.cuda.synchronize()
+            pair_ms.append(1e3 * (time.perf_counter() - t0))
+        times.append(pair_ms)
+    log("bm", shape=BM_SHAPE, card_ms_pair1_cold=[t[0] for t in times],
+        card_ms_pair2_bidirectional=[t[1] for t in times])
+    profile_pair(frames, st, dev)
+
+
+def profile_pair(frames, state, dev, top: int = 8) -> None:
+    """One steady-state pair under torch.profiler: the device's busy time
+    against the host clock, and the device ops that take the most time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bm_pair(frames, 1, state, dev)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log("bm", profile_wall_ms=wall_ms, device_busy_ms=busy_ms,
+        device_idle_share=1.0 - busy_ms / wall_ms)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        log("bm", profile_op=json.dumps(e.key[:60]),
+            ms=e.self_device_time_total / 1e3, calls=e.count)
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     sys.path.insert(0, str(REPO))
     name = phase_device()
     import torch
@@ -652,10 +1068,11 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     numbers = phase_kernels(dev)
-    launches, hs, ba, fb_runs, stream = phase_main(dev)
+    launches, hs, ba, fb_runs, stream, bm = phase_main(dev)
     phase_hs(*hs)
     phase_ba(*ba)
     phase_fb(fb_runs, stream)
+    phase_bm(dev, *bm)
     kernels = []
     for kname, source, replaces in (
             ("hs_sweeps", "tpuflow_torch/csrc/hs_stencil.cu",
@@ -667,12 +1084,17 @@ def main() -> None:
             ("fb_poly_expansion", "tpuflow_torch/csrc/fb_kernels.cu",
              "tpuflow/kernels/fb_kernels.py:203"),
             ("fb_blur_solve", "tpuflow_torch/csrc/fb_kernels.cu",
-             "tpuflow/kernels/fb_kernels.py:93")):
+             "tpuflow/kernels/fb_kernels.py:93"),
+            ("irls_gated_sweeps", "tpuflow_torch/csrc/irls_gated.cu",
+             "tpuflow/kernels/irls_stencil.py:199"),
+            ("mean_shift_filter", "tpuflow_torch/csrc/ms_filter.cu",
+             "tpuflow/kernels/ms_filter.py:129")):
         if launches.get(kname, 0) < 1:
             raise AssertionError(f"{kname} was not launched on the main path")
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": launches[kname], **numbers[kname]})
+    log("total", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,0 +1,499 @@
+"""Block matching over labeled regions (port of :mod:`tpuflow.blockmatching.matcher`).
+
+Reconstruction of ``BlockMatching<Lab>`` (OpticalFlow_BlockMatching.cpp:
+96-219): per region, an exhaustive search over a ``search_range``-wide
+window of integer displacements with cost ``coeff_MAD * MAD - coeff_ZNCC
+* ZNCC`` (lower is better), then a ``subpixel``-scale refinement around
+the integer winner. Out-of-frame reference reads are zeros (the
+reference's ``get_zeropad``).
+
+Two integer-search evaluators, as in tpuflow:
+
+- ``"matmul"`` (default): per 32-row strip, the region one-hot matrix L
+  (strip pixels x regions present in the strip) reduces every candidate
+  chunk's moment fields in ONE ``L^T @ F`` product, in float64
+  (:data:`ACC`; the fields are cast up first, so on the card it is a
+  float64 GEMM, slower than tpuflow's float32 one); the shifted reference
+  is one gather per chunk from a zero-padded copy;
+- ``"gather"``: pixels permuted into label order once, per-region sums
+  by chunk sums + boundary prefixes (:func:`_contiguous_range_sums`).
+
+The per-pixel fields are computed in the frames' dtype, as in tpuflow,
+and every per-region sum, cost and argmin in float64 (:data:`ACC`, where
+tpuflow sums in float32):
+float32 sums taken in two devices' orders differ by ~1e-6 relative, which
+the ZNCC's moment form amplifies past the gap between neighbouring
+subpixel candidates of a small region, so the card and the CPU would
+pick different winners. Every reduction is deterministic: no
+``index_add_``/``scatter_add_`` (CUDA sums those with atomics in a
+changing order, which would flip an argmin at a near-tie from run to
+run). The coarse, half-resolution and
+bf16 evaluators of the fast and turbo profiles are not ported (ROADMAP
+Queue 1); nor are tpuflow's ``region_bucket``/``pad_region_bounds``,
+which dodge XLA recompiles: the port works with the true region count.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from tpuflow_torch.core.color import LAB_SCALE as _LAB_SCALE
+
+#: The integer-search evaluators the port implements.
+METHODS = ("matmul", "gather")
+#: tpuflow's other evaluators, not ported yet.
+_UNPORTED = ("matmul_bf16", "matmul_coarse", "matmul_coarse3",
+             "matmul_half", "matmul_half2")
+
+#: The dtype of every per-region sum and cost.
+ACC = torch.float64
+
+#: Rows per one-hot strip (tpuflow's ``_STRIP``).
+_STRIP = 32
+
+#: Most regions a match takes. The per-candidate sums hold n_cand x
+#: n_regions x 8 floats (61x61 search: 1.9 GB at this limit); a frame
+#: segmented finer than this is refused with its count, not left to run
+#: out of memory.
+MAX_REGIONS = 16384
+
+
+def validate_method(method: str) -> None:
+    if method in _UNPORTED:
+        raise NotImplementedError(
+            f"block-matching method {method!r} is not ported to "
+            "tpuflow_torch yet (ROADMAP.md Queue 1)")
+    if method not in METHODS:
+        raise ValueError(
+            f"unknown block-matching method {method!r}; expected one of "
+            f"{METHODS}")
+
+
+def grid_labels(h: int, w: int, block_size: int) -> np.ndarray:
+    """The reference's fixed-block domain map
+    (OpticalFlow_BlockMatching.cpp:103-108)."""
+    ys, xs = np.mgrid[0:h, 0:w]
+    nbx = -(-w // block_size)
+    return (nbx * (ys // block_size) + xs // block_size).astype(np.int32)
+
+
+@dataclass
+class BlockMatchResult:
+    """Per-pixel motion vectors (+ per-region winners), host arrays."""
+
+    u: np.ndarray        # (H, W) x-displacement (toward the reference frame)
+    v: np.ndarray        # (H, W)
+    cost: np.ndarray     # (H, W) winning cost (per pixel via its region)
+    region_uv: np.ndarray    # (n_regions, 2)
+    region_cost: np.ndarray  # (n_regions,)
+
+
+def region_reduction_plan(labels: np.ndarray, n_regions: int):
+    """The sort-by-label pixel permutation and the region boundary offsets."""
+    flat = np.asarray(labels).reshape(-1)
+    perm = np.argsort(flat, kind="stable").astype(np.int64)
+    counts = np.bincount(flat, minlength=n_regions)
+    bounds = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    return perm, bounds
+
+
+def _contiguous_range_sums(sorted_fields: torch.Tensor, bounds: torch.Tensor,
+                           chunk: int = 512) -> torch.Tensor:
+    """Per-range sums S[bounds[r]:bounds[r+1]] of an (N, C) array, in
+    :data:`ACC`: chunk partial sums, their cumsum, and masked prefixes of
+    the boundary chunks."""
+    sorted_fields = sorted_fields.to(ACC)
+    n, c = sorted_fields.shape
+    n_pad = -(-n // chunk) * chunk
+    f = torch.nn.functional.pad(sorted_fields, (0, 0, 0, n_pad - n))
+    chunks = f.view(n_pad // chunk, chunk, c)
+    partial = chunks.sum(dim=1)                          # (n_chunks, C)
+    cs = torch.cat([torch.zeros((1, c), dtype=f.dtype, device=f.device),
+                    torch.cumsum(partial, dim=0)], dim=0)
+    cidx = torch.div(bounds, chunk, rounding_mode="floor")
+    off = bounds % chunk
+    rows = chunks[torch.clamp_max(cidx, chunks.shape[0] - 1)]
+    mask = (torch.arange(chunk, device=f.device)[None, :]
+            < off[:, None]).to(f.dtype)
+    prefix = (rows * mask[:, :, None]).sum(dim=1)        # (n_bounds, C)
+    s_at = cs[cidx] + prefix
+    return s_at[1:] - s_at[:-1]
+
+
+def _l1(cur: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Mean Lab L1 distance in standard Lab units, channels summed in order."""
+    d = (cur - ref).abs()
+    return (d[..., 0] + d[..., 1] + d[..., 2]) * (_LAB_SCALE / 3.0)
+
+
+def _moment_fields(cur: torch.Tensor, ref_shifted: torch.Tensor,
+                   member: torch.Tensor) -> torch.Tensor:
+    """(N, 7) per-pixel moment fields for the MAD+ZNCC cost: membership,
+    Lab L1 (standard Lab units: tpuflow's Lab is normalized by 100) and
+    the L-channel ZNCC moments. Out-of-frame reads arrive as zeros."""
+    m = member.to(cur.dtype)
+    lab_l1 = _l1(cur, ref_shifted)
+    a = cur[..., 0]
+    b = ref_shifted[..., 0]
+    return torch.stack(
+        [m, m * lab_l1, m * a, m * b, m * a * a, m * b * b, m * a * b],
+        dim=-1).reshape(-1, 7)
+
+
+def _cost_core(n, s_mad, s_a, s_b, s_aa, s_bb, s_ab):
+    """Moment sums (broadcastable) -> (mad, zncc, n). ZNCC is clamped to
+    [-1, 1]: the float moment form loses the Cauchy-Schwarz bound on
+    near-constant regions."""
+    n_safe = torch.clamp_min(n, 1.0)
+    mad = s_mad / n_safe
+    sa = s_a / n_safe
+    sb = s_b / n_safe
+    saa = s_aa / n_safe
+    sbb = s_bb / n_safe
+    sab = s_ab / n_safe
+    var_a = torch.clamp_min(saa - sa * sa, 0.0)
+    var_b = torch.clamp_min(sbb - sb * sb, 0.0)
+    denom = torch.sqrt(var_a * var_b) + 1e-12
+    zncc = torch.clamp((sab - sa * sb) / denom, -1.0, 1.0)
+    big = torch.full((), float("inf"), dtype=mad.dtype, device=mad.device)
+    return torch.where((n > 0).expand_as(mad), mad, big), zncc, n
+
+
+def _cost_from_sums(sums: torch.Tensor):
+    """(..., n_regions, 7) moment sums -> (mad, zncc, n)."""
+    return _cost_core(*sums.unbind(-1))
+
+
+def search_candidates(search_range: int) -> np.ndarray:
+    """The (2R+1)^2 integer displacement grid, (n, (dy, dx)), row-major
+    over dy then dx (the order every evaluator shares)."""
+    R = search_range // 2
+    return np.stack(
+        np.meshgrid(np.arange(-R, R + 1), np.arange(-R, R + 1),
+                    indexing="ij"), -1).reshape(-1, 2)
+
+
+def _shifted(ref_p: torch.Tensor, radius: int, y0: int, rows: int,
+             d: torch.Tensor) -> torch.Tensor:
+    """(rows * W, CH, C): the reference at (x + dx, y + dy) for the rows
+    [y0, y0 + rows) and each of the CH candidates ``d`` ((dy, dx) on the
+    device), read from ``ref_p``, the frame zero-padded by ``radius``."""
+    w = ref_p.shape[1] - 2 * radius
+    dev = ref_p.device
+    yy = (torch.arange(y0, y0 + rows, device=dev)[:, None, None]
+          + radius + d[None, None, :, 0])                 # (rows, 1, CH)
+    xx = (torch.arange(w, device=dev)[None, :, None]
+          + radius + d[None, None, :, 1])                 # (1, W, CH)
+    return ref_p[yy, xx].reshape(rows * w, d.shape[0], ref_p.shape[2])
+
+
+def _integer_costs(cur_lab, ref_lab, perm, bounds, n_regions: int, cand,
+                   coeff_mad: float, coeff_zncc: float, chunk: int,
+                   radius: int):
+    """The gather evaluator: MAD+ZNCC cost of every candidate,
+    (n_cand, n_regions). ``perm``/``bounds`` from
+    :func:`region_reduction_plan`, on the frames' device; ``radius``
+    bounds max |d|."""
+    h, w, c = cur_lab.shape
+    R = radius
+    ref_p = torch.nn.functional.pad(ref_lab, (0, 0, R, R, R, R))
+    cur = cur_lab.reshape(h * w, 1, c)
+    a = cur[..., 0]
+    out = []
+    for k0 in range(0, cand.shape[0], chunk):
+        d = cand[k0 : k0 + chunk]
+        sub = _shifted(ref_p, R, 0, h, d)                 # (N, CH, C)
+        b = sub[..., 0]
+        one = torch.ones_like(b)
+        f = torch.stack([one, _l1(cur, sub), a.expand_as(b), b,
+                         (a * a).expand_as(b), b * b, a * b], dim=-1)
+        sums = _contiguous_range_sums(f.reshape(h * w, -1)[perm], bounds)
+        mad, zncc, _ = _cost_from_sums(
+            sums.view(n_regions, d.shape[0], 7).transpose(0, 1))
+        out.append(coeff_mad * mad - coeff_zncc * zncc)
+    return torch.cat(out, dim=0)
+
+
+def _strip_plan(labels: np.ndarray, device):
+    """Per strip of :data:`_STRIP` rows: (y0, rows, the regions present
+    (a device index), each pixel's position among them (a device index),
+    their count). Computed on the host from the host label map."""
+    h = labels.shape[0]
+    plan = []
+    for y0 in range(0, h, _STRIP):
+        rows = min(_STRIP, h - y0)
+        present, local = np.unique(labels[y0 : y0 + rows],
+                                   return_inverse=True)
+        local = torch.from_numpy(local.reshape(-1).astype(np.int64)).to(device)
+        plan.append((y0, rows, torch.from_numpy(present.astype(np.int64))
+                     .to(device), local, len(present)))
+    return plan
+
+
+def _matmul_costs(cur_lab, refs, labels: np.ndarray, n_regions: int, cand,
+                  coeff_mad: float, coeff_zncc: float, chunk: int,
+                  radius: int):
+    """The strip one-hot evaluator for one or more reference frames
+    matched against the same current frame and labels: the
+    candidate-invariant current-frame moments reduce once per strip, and
+    each candidate chunk builds 4 channels per reference
+    (L1, b, b^2, a*b) and reduces them in one ``L^T @ F`` product over the
+    regions present in the strip. Returns one (n_cand, n_regions) cost
+    table per reference, each equal to a single-reference call."""
+    dev = cur_lab.device
+    h, w, c = cur_lab.shape
+    R = radius
+    n_ref = len(refs)
+    refs_p = [torch.nn.functional.pad(r, (0, 0, R, R, R, R)) for r in refs]
+    n_cand = cand.shape[0]
+    # Channel-major per region, (n_regions, 4 * n_ref, n_cand): each
+    # chunk's fields stack in runs of CH contiguous values.
+    acc_var = torch.zeros((n_regions, 4 * n_ref, n_cand), dtype=ACC,
+                          device=dev)
+    acc_fix = torch.zeros((n_regions, 3), dtype=ACC, device=dev)
+    for y0, rows, present, local, n_p in _strip_plan(labels, dev):
+        L = torch.nn.functional.one_hot(local, n_p).to(ACC)  # (P, n_p)
+        cur_s = cur_lab[y0 : y0 + rows].reshape(rows * w, 1, c)
+        a = cur_s[:, 0, 0]
+        # Candidate-invariant current-frame moments: n, sum a, sum a^2.
+        fix = torch.stack([torch.ones_like(a), a, a * a], dim=-1)
+        acc_fix[present] += L.t() @ fix.to(ACC)
+        for k0 in range(0, n_cand, chunk):
+            d = cand[k0 : k0 + chunk]
+            fields = []
+            for ref_p in refs_p:
+                sub = _shifted(ref_p, R, y0, rows, d)          # (P, CH, C)
+                b = sub[..., 0]
+                fields += [_l1(cur_s, sub), b, b * b, cur_s[..., 0] * b]
+            F = torch.stack(fields, dim=1).reshape(rows * w, -1).to(ACC)
+            acc_var[present, :, k0 : k0 + d.shape[0]] += (L.t() @ F).view(
+                n_p, 4 * n_ref, d.shape[0])
+    var = acc_var.permute(2, 0, 1)                      # (n_cand, n_reg, 4k)
+    out = []
+    for off in range(0, 4 * n_ref, 4):
+        mad, zncc, _ = _cost_core(acc_fix[:, 0], var[..., off],
+                                  acc_fix[:, 1], var[..., off + 1],
+                                  acc_fix[:, 2], var[..., off + 2],
+                                  var[..., off + 3])
+        out.append(coeff_mad * mad - coeff_zncc * zncc)
+    return out
+
+
+def _integer_costs_matmul(cur_lab, ref_lab, labels, n_regions: int, cand,
+                          coeff_mad: float, coeff_zncc: float, chunk: int,
+                          radius: int):
+    """(n_cand, n_regions) costs of every candidate (one reference)."""
+    return _matmul_costs(cur_lab, [ref_lab], labels, n_regions, cand,
+                         coeff_mad, coeff_zncc, chunk, radius)[0]
+
+
+def _integer_costs_matmul_bidi(cur_lab, refp_lab, refn_lab, labels,
+                               n_regions: int, cand, coeff_mad: float,
+                               coeff_zncc: float, chunk: int, radius: int):
+    """Both time directions in one evaluator (shared one-hot matrices,
+    current-frame moments and launches); each direction's table equals
+    :func:`_integer_costs_matmul`'s. Returns (costs_prev, costs_next)."""
+    return tuple(_matmul_costs(cur_lab, [refp_lab, refn_lab], labels,
+                               n_regions, cand, coeff_mad, coeff_zncc, chunk,
+                               radius))
+
+
+def _subpixel_refine(cur_lab, ref_lab, labels, perm, bounds, n_regions: int,
+                     best_d, best_cost, subpixel_scale: int,
+                     coeff_mad: float, coeff_zncc: float):
+    """Refine each region's integer winner on a 1/subpixel grid in (-1, 1):
+    every candidate's bilinear taps lie in the winner's 3x3 integer
+    neighbourhood, gathered once in label-sorted order; one range-sum
+    pass reduces every candidate's moment fields."""
+    dt = cur_lab.dtype
+    dev = cur_lab.device
+    h, w, c = cur_lab.shape
+    n_pix = h * w
+    s = 1.0 / subpixel_scale
+    sub_np = np.stack(
+        np.meshgrid(np.arange(-(subpixel_scale - 1), subpixel_scale),
+                    np.arange(-(subpixel_scale - 1), subpixel_scale),
+                    indexing="ij"), -1).reshape(-1, 2) * s  # (n_sub, 2)
+    n_sub = sub_np.shape[0]
+    d_pix = best_d[labels]                   # (H, W, (dy, dx)), integral
+    xs = torch.arange(w, device=dev)[None, :]
+    ys = torch.arange(h, device=dev)[:, None]
+    x_base = (xs + d_pix[..., 1].long()).reshape(-1)[perm]
+    y_base = (ys + d_pix[..., 0].long()).reshape(-1)[perm]
+    ref_flat = ref_lab.reshape(n_pix, c)
+    cur_s = cur_lab.reshape(n_pix, c)[perm]
+    ones = torch.ones((n_pix,), dtype=dt, device=dev)
+
+    def g(yy, xx):
+        # Zero-pad taps (get_zeropad), as in the integer search.
+        ok = ((yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)).to(dt)
+        yy = yy.clamp(0, h - 1)
+        xx = xx.clamp(0, w - 1)
+        return ref_flat[yy * w + xx] * ok[:, None]
+
+    nb = {(jy, jx): g(y_base + jy, x_base + jx)
+          for jy in (-1, 0, 1) for jx in (-1, 0, 1)}
+    fields_all = []
+    for dy_f, dx_f in sub_np:
+        iy = int(np.floor(dy_f))  # -1 or 0
+        ix = int(np.floor(dx_f))
+        fx = float(dx_f - ix)
+        fy = float(dy_f - iy)
+        interp = ((1 - fx) * (1 - fy) * nb[(iy, ix)]
+                  + fx * (1 - fy) * nb[(iy, ix + 1)]
+                  + (1 - fx) * fy * nb[(iy + 1, ix)]
+                  + fx * fy * nb[(iy + 1, ix + 1)])
+        fields_all.append(_moment_fields(cur_s, interp, ones))
+    fs = torch.stack(fields_all, dim=1).reshape(n_pix, n_sub * 7)
+    sums = _contiguous_range_sums(fs, bounds)       # (n_regions, n_sub*7)
+    mad, zncc, _ = _cost_from_sums(
+        sums.view(n_regions, n_sub, 7).transpose(0, 1))
+    sub_costs = coeff_mad * mad - coeff_zncc * zncc   # (n_sub, n_regions)
+    sbest = torch.argmin(sub_costs, dim=0)
+    best_cost = sub_costs.gather(0, sbest[None, :])[0]
+    best_d = best_d + torch.as_tensor(sub_np, dtype=dt, device=dev)[sbest]
+    return best_d, best_cost
+
+
+def _argmin_and_refine(costs, cur_lab, ref_lab, labels, perm, bounds,
+                       n_regions: int, search_range: int,
+                       subpixel_scale: int, coeff_mad: float,
+                       coeff_zncc: float):
+    """Integer argmin over the (n_cand, n_regions) cost table, then the
+    subpixel refinement -> (uv (n_regions, 2), cost)."""
+    cand = torch.as_tensor(search_candidates(search_range),
+                           device=cur_lab.device)
+    best = torch.argmin(costs, dim=0)        # first minimum, as jnp.argmin
+    best_cost = costs.gather(0, best[None, :])[0]
+    best_d = cand[best].to(cur_lab.dtype)
+    if subpixel_scale > 1:
+        best_d, best_cost = _subpixel_refine(
+            cur_lab, ref_lab, labels, perm, bounds, n_regions, best_d,
+            best_cost, subpixel_scale, coeff_mad, coeff_zncc)
+    return torch.stack([best_d[:, 1], best_d[:, 0]], dim=-1), best_cost
+
+
+def _plan(cur_lab, labels, n_regions: int, method: str):
+    """Validate, and move the host labels and their reduction plan to the
+    frames' device."""
+    validate_method(method)
+    if n_regions > MAX_REGIONS:
+        raise ValueError(f"block matching: {n_regions} regions, more than "
+                         f"MAX_REGIONS={MAX_REGIONS}")
+    labels = np.asarray(labels)
+    dev = cur_lab.device
+    perm, bounds = region_reduction_plan(labels, n_regions)
+    return (labels, torch.from_numpy(labels.astype(np.int64)).to(dev),
+            torch.from_numpy(perm).to(dev), torch.from_numpy(bounds).to(dev))
+
+
+def _match_device(cur_lab, ref_lab, labels, n_regions: int, search_range,
+                  coeff_mad, coeff_zncc, subpixel_scale, chunk,
+                  method: str = "matmul"):
+    """One direction's search on the frames' device; returns device
+    tensors (uv (n_regions, 2), cost (n_regions,)). ``labels`` is the
+    host label map (int, (H, W))."""
+    labels_np, labels_t, perm, bounds = _plan(cur_lab, labels, n_regions,
+                                              method)
+    n_regions = int(n_regions)
+    cand = torch.as_tensor(search_candidates(search_range),
+                           device=cur_lab.device)
+    if method == "matmul":
+        costs = _integer_costs_matmul(
+            cur_lab, ref_lab, labels_np, n_regions, cand, float(coeff_mad),
+            float(coeff_zncc), max(int(chunk), 64), search_range // 2)
+    else:
+        costs = _integer_costs(cur_lab, ref_lab, perm, bounds, n_regions,
+                               cand, float(coeff_mad), float(coeff_zncc),
+                               int(chunk), search_range // 2)
+    return _argmin_and_refine(costs, cur_lab, ref_lab, labels_t, perm,
+                              bounds, n_regions, int(search_range),
+                              int(subpixel_scale), float(coeff_mad),
+                              float(coeff_zncc))
+
+
+def _match_device_bidirectional(cur_lab, refp_lab, refn_lab, labels,
+                                n_regions: int, search_range, coeff_mad,
+                                coeff_zncc, subpixel_scale, chunk,
+                                method: str = "matmul"):
+    """Both directions' searches; ``"matmul"`` shares one evaluator
+    (:func:`_integer_costs_matmul_bidi`), ``"gather"`` runs two
+    :func:`_match_device`. Returns ((uv_p, cost_p), (uv_n, cost_n))."""
+    if method != "matmul":
+        return tuple(_match_device(cur_lab, ref, labels, n_regions,
+                                   search_range, coeff_mad, coeff_zncc,
+                                   subpixel_scale, chunk, method)
+                     for ref in (refp_lab, refn_lab))
+    labels_np, labels_t, perm, bounds = _plan(cur_lab, labels, n_regions,
+                                              method)
+    n_regions = int(n_regions)
+    cand = torch.as_tensor(search_candidates(search_range),
+                           device=cur_lab.device)
+    costs_pair = _integer_costs_matmul_bidi(
+        cur_lab, refp_lab, refn_lab, labels_np, n_regions, cand,
+        float(coeff_mad), float(coeff_zncc), max(int(chunk), 64),
+        search_range // 2)
+    return tuple(
+        _argmin_and_refine(costs, cur_lab, ref, labels_t, perm, bounds,
+                           n_regions, int(search_range), int(subpixel_scale),
+                           float(coeff_mad), float(coeff_zncc))
+        for costs, ref in zip(costs_pair, (refp_lab, refn_lab)))
+
+
+def _result_from_host(uv, cost, lab_np) -> BlockMatchResult:
+    uv = uv.cpu().numpy()
+    cost = cost.cpu().numpy()
+    return BlockMatchResult(
+        u=uv[lab_np][..., 0], v=uv[lab_np][..., 1], cost=cost[lab_np],
+        region_uv=uv, region_cost=cost)
+
+
+def block_matching_labels(
+    cur_lab: torch.Tensor,
+    ref_lab: torch.Tensor,
+    labels,
+    n_regions: int,
+    search_range: int = 61,
+    coeff_mad: float = 1.0,
+    coeff_zncc: float = 0.5,
+    subpixel_scale: int = 2,
+    chunk: int = 16,
+    method: str = "matmul",
+) -> BlockMatchResult:
+    """Match every region of ``cur`` against ``ref`` on their device;
+    vectors point from cur pixels toward their reference-frame position
+    (inverse flow, like the reference's get_prev)."""
+    lab_np = np.asarray(labels)
+    uv, cost = _match_device(cur_lab, ref_lab, lab_np, n_regions,
+                             search_range, coeff_mad, coeff_zncc,
+                             subpixel_scale, chunk, method)
+    return _result_from_host(uv, cost, lab_np)
+
+
+def block_matching_bidirectional(
+    cur_lab: torch.Tensor,
+    prev_lab: torch.Tensor,
+    next_lab: torch.Tensor,
+    labels,
+    n_regions: int,
+    search_range: int = 61,
+    coeff_mad: float = 1.0,
+    coeff_zncc: float = 0.5,
+    subpixel_scale: int = 2,
+    chunk: int = 16,
+    method: str = "matmul",
+):
+    """Bidirectional matching: returns (prev_result, next_result,
+    t (H, W) in {-1, +1}) with t = -1 where the prev match wins
+    (BlockMatching::get's Vector_ST time direction)."""
+    lab_np = np.asarray(labels)
+    d_prev, d_next = _match_device_bidirectional(
+        cur_lab, prev_lab, next_lab, lab_np, n_regions, search_range,
+        coeff_mad, coeff_zncc, subpixel_scale, chunk, method)
+    r_prev = _result_from_host(*d_prev, lab_np)
+    r_next = _result_from_host(*d_next, lab_np)
+    t = np.where(r_prev.cost <= r_next.cost, -1, 1).astype(np.int8)
+    return r_prev, r_next, t

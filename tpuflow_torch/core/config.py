@@ -1,15 +1,26 @@
 """Configuration dataclasses (port of :mod:`tpuflow.core.config`).
 
-Only the parameter surface the dense variational solvers read is ported
-so far: ``MultipleMotionParam``, with the same field names and defaults
-as the JAX package. :func:`from_tpuflow` carries a tpuflow instance
-across by field name, without importing tpuflow.
+Ported so far: the output-mode bitmask the flagship branches on,
+and ``MultipleMotionParam``, with the same field names and defaults as
+the JAX package. :func:`from_tpuflow` carries a tpuflow instance across
+by field name, without importing tpuflow.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+# Mode bitmask (Scratch_Struct.h:84-95)
+MODE_OUTPUT_FILTERED_IMAGE = 0x0010
+MODE_OUTPUT_BINARY_IMAGE = 0x0020
+MODE_OUTPUT_MULTIPLE_MOTIONS_AFFINE = 0x0040
+MODE_OUTPUT_OPTICALFLOW = 0x0080
+MODE_OUTPUT_AFFINE_BLOCKMATCHING = 0x0100
+MODE_OUTPUT_OPTICALFLOW_BLOCKMATCHING = 0x0200
+MODE_OUTPUT_HOG_RAW = 0x1000
+MODE_OUTPUT_HOG = 0x2000
+MODE_OUTPUT_HOG_MATCHING_VECTOR = 0x4000
 
 
 @dataclass
@@ -26,7 +37,8 @@ class MultipleMotionParam:
     block_matching_block_size: int = 8
     # Flagship block-matching constants (search 61x61, subpixel
     # x2, mean-shift kernel (20, 16/255)); carried for parity with the
-    # JAX dataclass, read by the block-matching slice once it is ported.
+    # JAX dataclass (optical_flow_block_matching takes them as arguments,
+    # as tpuflow's does).
     bm_search_range: int = 61
     bm_subpixel_scale: int = 2
     bm_kernel_spatial: int = 20

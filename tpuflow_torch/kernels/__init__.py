@@ -1,5 +1,6 @@
 """Hand-written Hopper kernels for the hot loops (HS and IRLS sweeps,
-separable correlation, Farneback's expansion and blur-solve), each beside
+separable correlation, Farneback's expansion and blur-solve, the
+flagship's mean-shift filter and region-gated IRLS sweep), each beside
 its plain PyTorch version (counterpart of :mod:`tpuflow.kernels`).
 
 A wrapper takes the plain version for CPU tensors and launches its CUDA

@@ -15,6 +15,12 @@ through :func:`irls_sweeps_plain`. ``sup_x``/``sup_y`` are one-element
 tensors on the fields' device, so a launch never waits for the host.
 Energy checks and early stopping stay outside
 (:mod:`tpuflow_torch.solvers.black_anandan_fast`).
+
+:func:`irls_gated_sweeps` is the flagship refinement's sweep
+(``irls_gated_sweep_pallas``, OpticalFlow_BlockMatching.cpp:465-514): the
+same update with each neighbour term gated by same-region labels and
+weighted by the direction coherence 0.5 * (1 + cos(u, u_nbr)), batched
+over reference directions; CUDA tensors take ``csrc/irls_gated.cu``.
 """
 
 from __future__ import annotations
@@ -26,8 +32,10 @@ import torch
 from tpuflow_torch.core import borders as bd
 from tpuflow_torch.kernels import _build
 
-# Launches of the CUDA kernel in this process (never the plain version).
+# Launches of the CUDA kernels in this process (never the plain versions):
+# irls_sweeps and irls_gated_sweeps.
 LAUNCHES = 0
+LAUNCHES_GATED = 0
 # Core tile of one block and its thread count. The shared tile is the core
 # plus a fuse-pixel halo on each side: 7 float fields, so
 # 7 * 4 * (TILE_H + 2*fuse) * (TILE_W + 2*fuse) bytes.
@@ -126,4 +134,103 @@ def irls_sweeps(u, v, gx, gy, it, sup_x, sup_y, fuse: int,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, "irls_sweeps", rc)
     LAUNCHES += 1
+    return u_out, v_out
+
+
+def _lib_gated() -> ctypes.CDLL:
+    lib = _build.load("irls_gated")
+    lib.irls_gated_launch.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
+        + [ctypes.c_int, ctypes.c_void_p])
+    lib.irls_gated_launch.restype = ctypes.c_int
+    lib.irls_gated_error_string.argtypes = [ctypes.c_int]
+    lib.irls_gated_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def smem_bytes_gated(fuse: int) -> int:
+    """Seven float fields and the int32 labels of the halo'd tile."""
+    return 8 * 4 * (TILE_H + 2 * fuse) * (TILE_W + 2 * fuse)
+
+
+def irls_gated_sweeps_plain(u, v, gx, gy, it, labels, sup_x, sup_y,
+                            fuse: int, lambda_d: float, lambda_s: float,
+                            sigma_d: float, sigma_s: float):
+    """``fuse`` region-gated IRLS Jacobi sweeps in plain PyTorch (the body
+    of tpuflow's ``irls_gradient_method``); returns (u, v). ``u``, ``v``,
+    ``it`` may carry a leading batch axis; ``gx``, ``gy``, ``labels`` are
+    (H, W) and shared."""
+    from tpuflow_torch.solvers.bm_flow import _neighbor_terms, _region_gates
+    from tpuflow_torch.solvers.mestimators import geman_mcclure_psi as psi
+
+    gates = _region_gates(labels, u.dtype)
+    for _ in range(fuse):
+        psi_d = psi(gx * u + gy * v + it, sigma_d)
+        nx, ny = _neighbor_terms(u, v, labels, sigma_s, gates)
+        u, v = (u - (lambda_d * gx * psi_d + lambda_s * nx) / sup_x,
+                v - (lambda_d * gy * psi_d + lambda_s * ny) / sup_y)
+    return u, v
+
+
+def irls_gated_sweeps(u, v, gx, gy, it, labels, sup_x, sup_y, fuse: int,
+                      lambda_d: float, lambda_s: float,
+                      sigma_d: float, sigma_s: float):
+    """``fuse`` region-gated IRLS Jacobi sweeps; returns new (u, v).
+
+    ``u``, ``v``, ``it``: (H, W) or (B, H, W), one field per reference
+    direction; ``gx``, ``gy``, ``labels``: (H, W), shared. CPU tensors take
+    :func:`irls_gated_sweeps_plain`; CUDA tensors (contiguous float32
+    fields, int32 labels, one-element float32 ``sup_x``/``sup_y`` on the
+    same device) take one launch of the CUDA kernel, or raise.
+    """
+    global LAUNCHES_GATED
+    if u.shape != v.shape or u.shape != it.shape or u.dim() not in (2, 3):
+        raise ValueError("irls_gated_sweeps: u, v, it must share an (H, W) "
+                         f"or (B, H, W) shape, got {tuple(u.shape)}, "
+                         f"{tuple(v.shape)}, {tuple(it.shape)}")
+    _build.check_fields("irls_gated_sweeps", gx, gy)
+    if (labels.shape != gx.shape or u.shape[-2:] != gx.shape
+            or labels.device != gx.device):
+        raise ValueError("irls_gated_sweeps: labels and the fields' (H, W) "
+                         "must match gx on its device")
+    if fuse < 1:
+        raise ValueError(f"irls_gated_sweeps: need fuse >= 1, got {fuse}")
+    for s in (sup_x, sup_y):
+        if s.numel() != 1 or s.device != u.device:
+            raise ValueError("irls_gated_sweeps: sup_x/sup_y must be "
+                             f"one-element tensors on {u.device}")
+    if u.device.type == "cpu":
+        return irls_gated_sweeps_plain(u, v, gx, gy, it, labels, sup_x,
+                                       sup_y, fuse, lambda_d, lambda_s,
+                                       sigma_d, sigma_s)
+    for f in (u, v, it, gx, gy, sup_x, sup_y):
+        if f.device != gx.device or f.dtype != torch.float32:
+            raise TypeError("irls_gated_sweeps: the CUDA kernel takes "
+                            f"float32 on {gx.device}, got {f.dtype} on "
+                            f"{f.device}")
+        if not f.is_contiguous():
+            raise ValueError("irls_gated_sweeps: the CUDA kernel takes "
+                             "contiguous fields")
+    if labels.dtype != torch.int32 or not labels.is_contiguous():
+        raise TypeError("irls_gated_sweeps: the CUDA kernel takes contiguous "
+                        f"int32 labels, got {labels.dtype}")
+    smem = smem_bytes_gated(fuse)
+    if smem > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"irls_gated_sweeps: fuse={fuse} needs {smem} B of "
+                         "shared memory per block "
+                         f"(> {_build.MAX_SMEM_BYTES})")
+    lib = _lib_gated()
+    h, w = gx.shape
+    batch = u.shape[0] if u.dim() == 3 else 1
+    u_out = torch.empty_like(u)
+    v_out = torch.empty_like(v)
+    with torch.cuda.device(u.device):
+        rc = lib.irls_gated_launch(
+            u.data_ptr(), v.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+            it.data_ptr(), labels.data_ptr(), sup_x.data_ptr(),
+            sup_y.data_ptr(), u_out.data_ptr(), v_out.data_ptr(), h, w,
+            batch, TILE_H, TILE_W, fuse, lambda_d, lambda_s, sigma_d,
+            sigma_s, THREADS, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(lib, "irls_gated", rc)
+    LAUNCHES_GATED += 1
     return u_out, v_out

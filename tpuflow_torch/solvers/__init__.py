@@ -22,6 +22,11 @@ from tpuflow_torch.solvers.black_anandan_fast import (  # noqa: F401
 from tpuflow_torch.solvers.farneback import (  # noqa: F401
     calc_optical_flow_farneback,
 )
+from tpuflow_torch.solvers.bm_flow import (  # noqa: F401
+    gradient_method_flow,
+    optical_flow_block_matching,
+    optical_flow_block_matching_async,
+)
 from tpuflow_torch.solvers.mestimators import (  # noqa: F401
     geman_mcclure_psi,
     geman_mcclure_rho,

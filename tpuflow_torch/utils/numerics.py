@@ -14,3 +14,15 @@ def true_div(x: torch.Tensor, s: float) -> torch.Tensor:
     keeps both devices on the IEEE division.
     """
     return x / torch.full((), s, dtype=x.dtype, device=x.device)
+
+
+def warm_cpu_sqrt() -> None:
+    """Run one multi-threaded float64 ``torch.sqrt`` on the CPU.
+
+    With torch 2.13 (CPU build, AVX512), the first such call in a process
+    returns, about one time in 45, one thread's share of the tensor with
+    ~1e-10 relative error instead of within an ulp; every later call is
+    exact. Tests that hold the port's CPU path to 1e-12 call this once
+    before they run.
+    """
+    torch.sqrt(torch.ones(1 << 16, dtype=torch.float64))
