@@ -7,10 +7,10 @@ Phases, each printing one line of its own numbers:
 
 1. device  — the card's name and power limit; TF32 off for the plain
    float32 references.
-2. build   — builds the six CUDA sources of ``tpuflow_torch/csrc`` (one
+2. build   — builds the seven CUDA sources of ``tpuflow_torch/csrc`` (one
    nvcc each, all started together, into ``build/tpuflow_torch``) and
    reports seconds and ptxas usage.
-3. kernels — each of the seven kernels against its plain PyTorch version
+3. kernels — each of the eleven kernels against its plain PyTorch version
    on the card, on float32 inputs from a numpy seed, with both versions'
    device times (``cuda_ms(..., device_only=True)``), the least time the
    card could take for the same work (``bound_ms``: the bytes over 3.35
@@ -25,7 +25,14 @@ Phases, each printing one line of its own numbers:
    375x1242 with 64; the gated IRLS 256 sweeps at 376x1240 and 375x1242,
    fuse 16 and 15, one and two directions, on the flagship scene's own
    refine inputs; the mean-shift filter at R = 20 for one iteration at
-   376x1240 and eight on a 96x160 crop.
+   376x1240 and eight on a 96x160 crop; the sharded solvers' tile sweeps
+   on one whole-frame tile at origin (-need, -need) (HS 100 sweeps at
+   2160x3840, fuse 5; IRLS 512 sweeps at 376x1240, fuse 16), each with a
+   zero pad of (u, v) between launches, as a 1x1 mesh's halo exchange
+   gives it, and again on a 2x2 cut at the tiles' frame origins,
+   stitched, bitwise equal to hs_sweeps / irls_sweeps on the whole frame;
+   the resident HS pair at 1080x1920, 100 sweeps (and 99, which ends in
+   the second buffer), resident2 beside ``horn_schunck_fused``.
 4. main    — each main path runs once through the public entry points,
    with every launch counter set to 0 just before it and read just after;
    each counter must show its kernel ran exactly as often as that path
@@ -40,7 +47,8 @@ Phases, each printing one line of its own numbers:
    defaults (376x1240, search 61, mean-shift (20, 16/255), subpixel 2,
    2048 sweeps) over three frames in one ``BMFlowState``: pair 1 cold and
    unidirectional (two filter launches), pair 2 bidirectional (one),
-   each with the gated kernel's launches as its refine counted them. The
+   each with the gated kernel's launches as its refine counted them; the
+   resident HS pair's entry points at 1080x1920 (one launch each). The
    frames are bench.py's ``_frames_1080p``, ``_frames_kitti`` and
    ``_multioctave_frames``, and for the flagship a seeded pan over ~1,800
    shaded Voronoi cells (``voronoi_frames``).
@@ -53,6 +61,25 @@ Phases, each printing one line of its own numbers:
    per pair; its CPU check is the same three-frame run on a 96x160 crop
    (search 15, 256 sweeps): equal labels, region counts, BM winners and
    time directions, and u, v within PATH_TOL.
+6. dist    — the sharded path (``tpuflow_torch.dist``) through
+   ``run_on_mesh``. (a) One NCCL rank on the card, at world size 1 (the
+   whole frame is one tile, the halos zeros):
+   ``horn_schunck_sharded_fused`` and ``horn_schunck_sharded`` at
+   2160x3840 (100 sweeps, 5x5, alpha 1, bench.py::bench_hs_4k's frames),
+   ``optical_flow_pyramid_sharded`` (fuse 16) on the BA row's frames,
+   ``weak_scaling_report`` at tile 512x1024 and the weak_scaling_1dev
+   row's ``horn_schunck_sharded_fused_dynamic`` at 512x1024, fuse 10, 100
+   and 300 sweeps (Mpix/s = 200 extra sweeps over the time difference),
+   each with its launch counts and ms per frame, and one profiler frame
+   each of the fused HS and the BA pyramid. The fused HS equals the
+   single-device ``horn_schunck`` bitwise, the unfused one is within
+   PATH_TOL of it, and BA is within PATH_TOL of
+   ``optical_flow_pyramid_fast`` with the same sweeps per level; all of
+   them agree with the same calls on one float32 gloo CPU rank within
+   PATH_TOL. (b) Four gloo ranks share the card as a 2x2 mesh (tiles at
+   nonzero origins, real halos staged through the host): the same calls,
+   HS bitwise equal to (a), BA within PATH_TOL with equal sweeps; its
+   times check the staged exchange and are no speed figure.
 
 Before the last line it prints the total seconds and the kernels as JSON;
 the last line is ``{"ok": true, "device": {...}}``. A failed phase
@@ -79,6 +106,13 @@ HS_ITERS, HS_WINDOW, HS_ALPHA = 100, 5, 1.0
 BA_SHAPE = (376, 1240)
 BA_LEVEL, BA_ITER_MAX, BA_FUSE = 5, 512, 16
 RAGGED_SHAPE = (375, 1242)
+# The sharded path: bench.py::bench_hs_4k's frame and sweeps, the fused
+# solver's default fuse (tpuflow's), the weak-scaling row (bench.py:588-634)
+# and the 2x2 mesh of gloo ranks sharing the card.
+HS4K_SHAPE = (2160, 3840)
+DIST_HS_FUSE = 5
+WEAK_TILE, WEAK_FUSE, WEAK_ITERS = (512, 1024), 10, (100, 300)
+DIST_GLOO_RANKS, DIST_CPU_THREADS, DIST_TIMEOUT_S = 4, 8, 900.0
 # Farneback (pyr_scale, levels, winsize, iterations, poly_n, poly_sigma),
 # bench.py:207-248, each with its frames.
 FB_STREAM = (0.4, 1, 48, 2, 8, 1.2)   # DenseFlow.cpp:37
@@ -204,6 +238,15 @@ def hs_bound(shape, sweeps, window):
     return bound(8 * 4 * px, px * sweeps * per)
 
 
+def resident_bound(shape, sweeps, window, recip):
+    # hs_bound's 27 per pixel and sweep; dividing every sweep adds the
+    # denominator's 4, the reciprocal once costs 5 per pixel. Bytes: gx,
+    # gy, gt read and u, v written once.
+    px = shape[0] * shape[1]
+    per = 2 * (2 * (window - 1) + 1) + 9 + (0 if recip else 4)
+    return bound(5 * 4 * px, px * (sweeps * per + (5 if recip else 0)))
+
+
 def irls_bound(shape, sweeps):
     # Per pixel: the data term and its psi (10) and the two updates (12);
     # per in-frame neighbour pair and direction: u - un, psi, the add (8)
@@ -269,6 +312,13 @@ def frames_1080p():
     prev = rng.uniform(0, 255, HS_SHAPE)
     nxt = np.roll(prev, 2, axis=1) + rng.normal(0, 1, HS_SHAPE)
     return prev, nxt
+
+
+def frames_4k():
+    """bench.py::bench_hs_4k's pair."""
+    rng = np.random.default_rng(4)
+    prev = rng.uniform(0, 255, HS4K_SHAPE)
+    return prev, np.roll(prev, 2, axis=1) + rng.normal(0, 1, HS4K_SHAPE)
 
 
 def frames_kitti():
@@ -379,7 +429,9 @@ def phase_build() -> None:
     from tpuflow_torch.kernels import (_build, fb_kernels, hs_stencil,
                                        irls_stencil, ms_filter, sepconv)
 
-    mods = {"hs_stencil": hs_stencil._lib, "irls_stencil": irls_stencil._lib,
+    mods = {"hs_stencil": hs_stencil._lib,
+            "hs_resident": hs_stencil._lib_resident,
+            "irls_stencil": irls_stencil._lib,
             "irls_gated": irls_stencil._lib_gated, "sepconv": sepconv._lib,
             "fb_kernels": fb_kernels._lib, "ms_filter": ms_filter._lib}
 
@@ -579,6 +631,7 @@ def phase_kernels(dev) -> dict:
                    blur_bound(*Mp.shape[1:], winsize), winsize=winsize)
 
     phase_kernels_flagship(dev, out)
+    phase_kernels_dist(dev, out)
     return out
 
 
@@ -659,11 +712,148 @@ def phase_kernels_flagship(dev, out) -> None:
     torch.cuda.synchronize()
 
 
+def exact(name: str, got, want) -> float:
+    """max|d| of two results that must be equal to the last bit."""
+    err, _ = max_err(list(zip(got, want)))
+    if err != 0.0:
+        raise AssertionError(f"{name}: max|d|={err}, expected 0")
+    return err
+
+
+def cut_2x2(fields, halo):
+    """The 2x2 tiles of full (H, W) fields, each with ``halo`` cells of the
+    zero-padded frame: ((i, k), tiles, (row0, col0)) per tile, (row0,
+    col0) the frame coordinates of the tiles' (0, 0)."""
+    import torch
+    import torch.nn.functional as F
+
+    h, w = fields[0].shape
+    th, tw = h // 2, w // 2
+    padded = F.pad(torch.stack(list(fields)), (halo,) * 4)
+    for i in range(2):
+        for k in range(2):
+            tiles = padded[:, i * th : i * th + th + 2 * halo,
+                           k * tw : k * tw + tw + 2 * halo].contiguous()
+            yield (i, k), tiles, (i * th - halo, k * tw - halo)
+
+
+def stitch_2x2(tiles: dict):
+    import torch
+
+    return torch.cat([torch.cat([tiles[i, 0], tiles[i, 1]], dim=-1)
+                      for i in range(2)], dim=-2)
+
+
+def tile_chain(sweep, u, v, fixed, shape, n_iters, fuse, halo, cut, args):
+    """``n_iters`` sweeps in blocks of ``fuse`` through a tile-sweep
+    function, on the whole frame as one tile at (-halo, -halo) (``cut``
+    False) or on its 2x2 cut, stitched after each block; (u, v) get a zero
+    pad of ``halo`` before each block, the ``fixed`` fields once."""
+    import torch
+    import torch.nn.functional as F
+
+    if not cut:
+        fixed_p = [F.pad(f, (halo,) * 4) for f in fixed]
+        for _ in range(n_iters // fuse):
+            uv = F.pad(torch.stack((u, v)), (halo,) * 4)
+            u, v = sweep(uv[0], uv[1], *fixed_p, *args[0], -halo, -halo,
+                         *shape, *args[1])
+        return u, v
+    fixed_t = {key: t for key, t, _ in cut_2x2(fixed, halo)}
+    for _ in range(n_iters // fuse):
+        us, vs = {}, {}
+        for key, uv, (row0, col0) in cut_2x2((u, v), halo):
+            us[key], vs[key] = sweep(uv[0], uv[1], *fixed_t[key], *args[0],
+                                     row0, col0, *shape, *args[1])
+        u, v = stitch_2x2(us), stitch_2x2(vs)
+    return u, v
+
+
+def phase_kernels_dist(dev, out) -> None:
+    """The sharded solvers' two tile kernels and the resident HS pair
+    against their plain versions (see the module docstring, phase 3)."""
+    import torch
+
+    from tpuflow_torch.kernels import hs_stencil, irls_stencil
+    from tpuflow_torch.solvers.black_anandan import (
+        LAMBDA_D, LAMBDA_S, SIGMA_D_L0, SIGMA_S_L0, irls_sup)
+
+    fuse = DIST_HS_FUSE
+    need = fuse * (HS_WINDOW // 2)
+    u, v, *fixed = f32(dev, *hs_fields(HS4K_SHAPE, 3))
+    what = dict(sweeps=HS_ITERS, fuse=fuse, origin=(-need, -need))
+
+    def hs_run(sweep, cut=False):
+        return tile_chain(sweep, u, v, fixed, HS4K_SHAPE, HS_ITERS, fuse,
+                          need, cut, ((), (HS_WINDOW, fuse)))
+
+    kernel_row(out, "hs_tile_sweeps", HS4K_SHAPE,
+               lambda: hs_run(hs_stencil.hs_tile_sweeps),
+               lambda: hs_run(hs_stencil.hs_tile_sweeps_plain),
+               hs_bound(HS4K_SHAPE, HS_ITERS, HS_WINDOW), **what)
+    whole = hs_stencil.hs_iterate(u, v, *fixed, HS_WINDOW, HS_ITERS, fuse)
+    err = exact("hs_tile_sweeps 2x2 cut vs hs_sweeps",
+                hs_run(hs_stencil.hs_tile_sweeps, cut=True), whole)
+    log("kernels", kernel="hs_tile_sweeps", shape=HS4K_SHAPE, cut="2x2",
+        sweeps=HS_ITERS, fuse=fuse, max_abs_err_vs_hs_sweeps=err)
+    del u, v, fixed, whole
+    torch.cuda.synchronize()
+
+    consts = (LAMBDA_D, LAMBDA_S, SIGMA_D_L0, SIGMA_S_L0)
+    u, v, gx, gy, it = f32(dev, *irls_fields(BA_SHAPE, 4))
+    sup = irls_sup(gx, gy, *consts)
+
+    def irls_run(sweep, cut=False):
+        return tile_chain(sweep, u, v, (gx, gy, it), BA_SHAPE, BA_ITER_MAX,
+                          BA_FUSE, BA_FUSE, cut, (sup, (BA_FUSE, *consts)))
+
+    kernel_row(out, "irls_tile_sweeps", BA_SHAPE,
+               lambda: irls_run(irls_stencil.irls_tile_sweeps),
+               lambda: irls_run(irls_stencil.irls_tile_sweeps_plain),
+               irls_bound(BA_SHAPE, BA_ITER_MAX), sweeps=BA_ITER_MAX,
+               fuse=BA_FUSE, origin=(-BA_FUSE, -BA_FUSE))
+    a, b = u, v
+    for _ in range(BA_ITER_MAX // BA_FUSE):
+        a, b = irls_stencil.irls_sweeps(a, b, gx, gy, it, *sup, BA_FUSE,
+                                        *consts)
+    err = exact("irls_tile_sweeps 2x2 cut vs irls_sweeps",
+                irls_run(irls_stencil.irls_tile_sweeps, cut=True), (a, b))
+    log("kernels", kernel="irls_tile_sweeps", shape=BA_SHAPE, cut="2x2",
+        sweeps=BA_ITER_MAX, fuse=BA_FUSE, max_abs_err_vs_irls_sweeps=err)
+    del u, v, gx, gy, it, a, b
+    torch.cuda.synchronize()
+
+    prev, nxt = f32(dev, *frames_1080p())
+    for name, fn, plain, recip in (
+            ("horn_schunck_resident", hs_stencil.horn_schunck_resident,
+             hs_stencil.horn_schunck_resident_plain, False),
+            ("horn_schunck_resident2", hs_stencil.horn_schunck_resident2,
+             hs_stencil.horn_schunck_resident2_plain, True)):
+        for iters in (HS_ITERS, HS_ITERS - 1):
+            kernel_row(out, name, HS_SHAPE,
+                       lambda fn=fn, iters=iters: fn(prev, nxt, HS_WINDOW,
+                                                     iters, HS_ALPHA),
+                       lambda plain=plain, iters=iters: plain(
+                           prev, nxt, HS_WINDOW, iters, HS_ALPHA),
+                       resident_bound(HS_SHAPE, iters, HS_WINDOW, recip),
+                       sweeps=iters)
+    fused = hs_stencil.horn_schunck_fused(prev, nxt, HS_WINDOW, HS_ITERS,
+                                          HS_ALPHA)
+    res2 = hs_stencil.horn_schunck_resident2(prev, nxt, HS_WINDOW, HS_ITERS,
+                                             HS_ALPHA)
+    err = check_close("horn_schunck_resident2 vs horn_schunck_fused",
+                      list(zip(res2, fused)), KERNEL_TOL)
+    log("kernels", kernel="horn_schunck_resident2", shape=HS_SHAPE,
+        sweeps=HS_ITERS, max_abs_err_vs_horn_schunck_fused=err)
+    torch.cuda.synchronize()
+
+
 # -- the main paths, each with its launch counts ------------------------------
 
 KERNELS = ("hs_sweeps", "irls_sweeps", "sep_conv2d_valid",
            "fb_poly_expansion", "fb_blur_solve", "irls_gated_sweeps",
-           "mean_shift_filter")
+           "mean_shift_filter", "hs_tile_sweeps", "irls_tile_sweeps",
+           "horn_schunck_resident", "horn_schunck_resident2")
 
 
 def reset_counts() -> None:
@@ -671,7 +861,11 @@ def reset_counts() -> None:
                                        ms_filter, sepconv)
 
     hs_stencil.LAUNCHES = 0
+    hs_stencil.LAUNCHES_TILE = 0
+    hs_stencil.LAUNCHES_RESIDENT = 0
+    hs_stencil.LAUNCHES_RESIDENT2 = 0
     irls_stencil.LAUNCHES = 0
+    irls_stencil.LAUNCHES_TILE = 0
     irls_stencil.LAUNCHES_GATED = 0
     sepconv.LAUNCHES = 0
     ms_filter.LAUNCHES = 0
@@ -687,7 +881,11 @@ def read_counts() -> dict:
             "irls_sweeps": irls_stencil.LAUNCHES,
             "sep_conv2d_valid": sepconv.LAUNCHES, **fb_kernels.LAUNCHES,
             "irls_gated_sweeps": irls_stencil.LAUNCHES_GATED,
-            "mean_shift_filter": ms_filter.LAUNCHES}
+            "mean_shift_filter": ms_filter.LAUNCHES,
+            "hs_tile_sweeps": hs_stencil.LAUNCHES_TILE,
+            "irls_tile_sweeps": irls_stencil.LAUNCHES_TILE,
+            "horn_schunck_resident": hs_stencil.LAUNCHES_RESIDENT,
+            "horn_schunck_resident2": hs_stencil.LAUNCHES_RESIDENT2}
 
 
 def counted(path: str, fn, expected, totals: dict):
@@ -765,6 +963,12 @@ def phase_main(dev):
         "horn_schunck", lambda: solvers.horn_schunck(
             *hs_frames, HS_WINDOW, HS_ITERS, HS_ALPHA),
         {"hs_sweeps": math.ceil(HS_ITERS / hs_stencil.DEFAULT_FUSE)}, totals)
+    resident = [counted(name, lambda fn=fn: fn(*hs_frames, HS_WINDOW, HS_ITERS,
+                                               HS_ALPHA), {name: 1}, totals)
+                for name, fn in (
+                    ("horn_schunck_resident", hs_stencil.horn_schunck_resident),
+                    ("horn_schunck_resident2",
+                     hs_stencil.horn_schunck_resident2))]
 
     ba_frames = f32(dev, *frames_kitti())
     blocks = []
@@ -813,7 +1017,8 @@ def phase_main(dev):
         lambda _: {"mean_shift_filter": 1,
                    "irls_gated_sweeps": bm_blocks[1]}, totals)
     log("main", bm_blocks=bm_blocks)
-    return (totals, (hs_frames, hs_flow), (ba_frames, ba_flow, blocks),
+    return (totals, (hs_frames, hs_flow, resident),
+            (ba_frames, ba_flow, blocks),
             fb_runs, (frames, stream), (bm_frames, (out1, out2), state))
 
 
@@ -834,7 +1039,7 @@ def bm_sequence(frames, device, **kw):
     return (out1, out2), state
 
 
-def phase_hs(frames, flow) -> None:
+def phase_hs(frames, flow, resident) -> None:
     import torch
 
     from tpuflow_torch import solvers
@@ -855,6 +1060,16 @@ def phase_hs(frames, flow) -> None:
     log("hs", shape=HS_SHAPE, max_abs_err_vs_cpu=err, max_abs_u=float(
         flow[0].abs().max()), card_ms_per_frame=ms,
         card_fps=1e3 / ms, cpu_f32_ms_per_frame=cpu_ms)
+    from tpuflow_torch.kernels import hs_stencil
+
+    for name, out in zip(("horn_schunck_resident", "horn_schunck_resident2"),
+                         resident):
+        err = check_close(f"{name} vs horn_schunck", list(zip(out, flow)),
+                          PATH_TOL)
+        fn = getattr(hs_stencil, name)
+        ms = cuda_ms(lambda: fn(*frames, HS_WINDOW, HS_ITERS, HS_ALPHA))
+        log("hs", path=name, shape=HS_SHAPE, max_abs_err_vs_horn_schunck=err,
+            card_ms_per_frame=ms)
 
 
 def phase_ba(frames, flow, blocks) -> None:
@@ -1038,25 +1253,290 @@ def phase_bm(dev, frames, outs, state) -> None:
 
 
 def profile_pair(frames, state, dev, top: int = 8) -> None:
-    """One steady-state pair under torch.profiler: the device's busy time
-    against the host clock, and the device ops that take the most time."""
+    """One steady-state pair under torch.profiler."""
+    profile_frame("bm", lambda: bm_pair(frames, 1, state, dev), top)
+
+
+def profile_frame(phase: str, fn, top: int = 8, **what) -> None:
+    """One call of fn under torch.profiler: the device's busy time against
+    the host clock, and the device ops that take the most time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        bm_pair(frames, 1, state, dev)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = [e for e in prof.key_averages()
               if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    log("bm", profile_wall_ms=wall_ms, device_busy_ms=busy_ms,
+    log(phase, **what, profile_wall_ms=wall_ms, device_busy_ms=busy_ms,
         device_idle_share=1.0 - busy_ms / wall_ms)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
-        log("bm", profile_op=json.dumps(e.key[:60]),
+        log(phase, **what, profile_op=json.dumps(e.key[:60]),
             ms=e.self_device_time_total / 1e3, calls=e.count)
+
+
+# -- the sharded path ---------------------------------------------------------
+
+
+def ba_sharded_call(prev, nxt, mesh, sweeps=None):
+    from tpuflow_torch.core.config import MultipleMotionParam
+    from tpuflow_torch.dist import optical_flow_pyramid_sharded
+
+    param = MultipleMotionParam(level=BA_LEVEL, error_min_threshold=0.0)
+    return optical_flow_pyramid_sharded(prev, nxt, mesh, 255.0, param,
+                                        iter_max=BA_ITER_MAX, fuse=BA_FUSE,
+                                        sweeps=sweeps)
+
+
+def fused_level(shape, mesh_shape) -> bool:
+    """Whether the sharded pyramid runs a level of this (h, w) fused on a
+    (ty, tx) mesh (dist/pyramid.py's first branch)."""
+    (h, w), (ty, tx) = shape, mesh_shape
+    return (h % ty == 0 and w % tx == 0 and h // ty > BA_FUSE
+            and w // tx > BA_FUSE)
+
+
+def ba_mesh_reference(prev, nxt, mesh_shape, sweeps):
+    """The single-device port of what the sharded pyramid computes on a
+    mesh of this shape: a level whose tiles take the fused branch relaxes
+    as ``irls_level_fast`` (stop checks every BA_FUSE sweeps above level
+    0), any other as ``irls_optical_flow_level`` (after every sweep, as the
+    unfused and the replicated branch check). ``sweeps`` gets each level's
+    sweeps, coarsest first."""
+    from tpuflow_torch.core.config import MultipleMotionParam
+    from tpuflow_torch.solvers.black_anandan import (
+        LAMBDA_D, LAMBDA_S, coarse_to_fine, irls_optical_flow_level)
+    from tpuflow_torch.solvers.black_anandan_fast import irls_level_fast
+
+    param = MultipleMotionParam(level=BA_LEVEL, error_min_threshold=0.0)
+
+    def solve_level(level, u0, v0, gx, gy, it_l, sigma_d, sigma_s, iters):
+        if fused_level(it_l.shape, mesh_shape):
+            u, v, _, b, _ = irls_level_fast(u0, v0, gx, gy, it_l, sigma_d,
+                                            sigma_s, iters, 0.0, level == 0,
+                                            BA_FUSE)
+            sweeps.append(b * BA_FUSE)
+        else:
+            u, v, _, n, _ = irls_optical_flow_level(
+                u0, v0, gx, gy, it_l, LAMBDA_D, LAMBDA_S, sigma_d, sigma_s,
+                iters, 0.0, level == 0)
+            sweeps.append(n)
+        return u, v
+
+    return coarse_to_fine(prev, nxt, 255.0, param, BA_ITER_MAX, 1.0,
+                          solve_level)
+
+
+def ba_sharded_expected(mesh, sweeps) -> dict:
+    """Launches of the sharded pyramid from the sweeps each level ran: a
+    fused level launches the tile kernel once per block, a replicated one
+    irls_sweeps once per sweep, an unfused sharded one no kernel (the
+    branch of dist/pyramid.py)."""
+    from tpuflow_torch.pyramid.pyramid import pyramid_sizes
+
+    ty, tx = mesh.shape
+    sizes = pyramid_sizes(BA_SHAPE[1], BA_SHAPE[0], BA_LEVEL)[::-1]
+    if len(sizes) != len(sweeps):
+        raise AssertionError(f"BA sharded: {len(sweeps)} levels, expected "
+                             f"{len(sizes)}")
+    want = {"irls_tile_sweeps": 0, "irls_sweeps": 0}
+    for (w, h), n in zip(sizes, sweeps):
+        if fused_level((h, w), (ty, tx)):
+            want["irls_tile_sweeps"] += n // BA_FUSE
+        elif not (h % ty == 0 and w % tx == 0 and h // ty >= 2
+                  and w // tx >= 2):
+            want["irls_sweeps"] += n
+    return want
+
+
+def on_card(dev) -> bool:
+    return dev.type == "cuda"
+
+
+def dist_rank(mesh, full: bool):
+    """The sharded path's calls on this rank's mesh (see the module
+    docstring, phase 6). On a card each call runs with the launch counts
+    zeroed just before and read just after, and is timed; ``full`` adds the
+    weak-scaling row and the profiler frames. Rank 0's results return as
+    CPU tensors with the counts and times."""
+    import torch
+
+    from tpuflow_torch import dist as D
+
+    dev = mesh.device
+    card = on_card(dev)
+    hs_frames = f32(dev, *frames_4k())
+    ba_frames = f32(dev, *frames_kitti())
+    totals, times, res = {}, {}, {}
+    weak_frames = f32(dev, *weak_frames_np())
+
+    def run(path, fn, expected):
+        return counted(path, fn, expected, totals) if card else fn()
+
+    def timed(key, fn, reps):
+        if card:
+            def synced():
+                fn()
+                torch.cuda.synchronize()
+            times[key] = host_ms(synced, reps=reps)
+        else:
+            times[key] = host_ms(fn)
+
+    hs_blocks = math.ceil(HS_ITERS / DIST_HS_FUSE)
+    calls = {
+        "hs_fused": (lambda: D.horn_schunck_sharded_fused(
+            *hs_frames, mesh, HS_WINDOW, HS_ITERS, HS_ALPHA, DIST_HS_FUSE),
+            {"hs_tile_sweeps": hs_blocks}),
+        "hs_unfused": (lambda: D.horn_schunck_sharded(
+            *hs_frames, mesh, HS_WINDOW, HS_ITERS, HS_ALPHA), {}),
+    }
+    for key, (fn, expected) in calls.items():
+        res[key] = [t.cpu() for t in run(f"dist_{key}", fn, expected)]
+        timed(key, fn, 5 if card else 1)
+    sweeps = []
+    res["ba"] = [t.cpu() for t in run(
+        "dist_ba_pyramid", lambda: ba_sharded_call(*ba_frames, mesh, sweeps),
+        lambda _: ba_sharded_expected(mesh, sweeps))]
+    res["ba_sweeps"] = sweeps
+    timed("ba", lambda: ba_sharded_call(*ba_frames, mesh), 3 if card else 1)
+
+    def dynamic(iters):
+        return D.horn_schunck_sharded_fused_dynamic(
+            *weak_frames, mesh, HS_WINDOW, iters, 1.0, WEAK_FUSE)
+
+    res["dynamic"] = [t.cpu() for t in run(
+        "dist_dynamic", lambda: dynamic(WEAK_ITERS[0]),
+        {"hs_tile_sweeps": WEAK_ITERS[0] // WEAK_FUSE})]
+    if card:
+        res["weak"] = run(
+            "dist_weak_scaling", lambda: D.weak_scaling_report(
+                WEAK_TILE, WEAK_ITERS[0], HS_WINDOW, WEAK_FUSE, 3, dev),
+            # Four calls on each sub-mesh this rank belongs to.
+            lambda rep: {"hs_tile_sweeps": 4 * (WEAK_ITERS[0] // WEAK_FUSE)
+                         * sum(row["devices"] > mesh.iy * mesh.tx + mesh.ix
+                               for row in rep["runs"])})
+    if full and card:
+        # bench.py::bench_weak_scaling_row: best of three means of four.
+        for iters in WEAK_ITERS:
+            def four(iters=iters):
+                for _ in range(4):
+                    dynamic(iters)
+            four()
+            torch.cuda.synchronize()
+            best = min(host_ms(lambda: (four(), torch.cuda.synchronize()))
+                       for _ in range(3)) / 4
+            times[f"dynamic_{iters}"] = best
+        th, tw = WEAK_TILE
+        res["weak_1dev_mpix_per_s"] = (
+            th * tw * (WEAK_ITERS[1] - WEAK_ITERS[0])
+            / ((times[f"dynamic_{WEAK_ITERS[1]}"]
+                - times[f"dynamic_{WEAK_ITERS[0]}"]) / 1e3) / 1e6)
+        profile_frame("dist", calls["hs_fused"][0], call="hs_fused")
+        profile_frame("dist", lambda: ba_sharded_call(*ba_frames, mesh),
+                      call="ba_pyramid")
+    return {"mesh": mesh.shape, "backend": mesh.backend, "device": str(dev),
+            "results": res, "launches": totals, "ms": times}
+
+
+def weak_frames_np():
+    """bench.py::bench_weak_scaling_row's pair at WEAK_TILE."""
+    rng = np.random.default_rng(0)
+    prev = rng.uniform(0, 255, WEAK_TILE).astype(np.float32)
+    return prev, np.roll(prev, 2, axis=1)
+
+
+def check_ba(name, got, frames, mesh_shape) -> float:
+    """The sharded pyramid's result against :func:`ba_mesh_reference` on
+    the card: the same sweeps per level and u, v within PATH_TOL."""
+    sweeps = []
+    ref = ba_mesh_reference(*frames, tuple(mesh_shape), sweeps)
+    if got["ba_sweeps"] != sweeps:
+        raise AssertionError(f"{name} BA sweeps {got['ba_sweeps']}, the "
+                             f"single-device reference {sweeps}")
+    return check_close(f"{name} BA vs the single-device reference",
+                       list(zip(got["ba"], ref)), PATH_TOL)
+
+
+def phase_dist(dev, ba) -> dict:
+    """The sharded path, (a) on one NCCL rank and (b) on a 2x2 mesh of gloo
+    ranks sharing the card, against the single-device port on the card
+    and one float32 gloo CPU rank. Returns (a)'s launch counts."""
+    import torch
+
+    from tpuflow_torch import solvers
+    from tpuflow_torch.dist import run_on_mesh
+
+    a = run_on_mesh(dist_rank, 1, "nccl", "cuda", kwargs={"full": True},
+                    timeout=DIST_TIMEOUT_S)
+    ba_frames, ba_flow, ba_blocks = ba
+    hs4k = f32(dev, *frames_4k())
+    hs_ref = solvers.horn_schunck(*hs4k, HS_WINDOW, HS_ITERS, HS_ALPHA)
+    single_ms = cuda_ms(lambda: solvers.horn_schunck(*hs4k, HS_WINDOW,
+                                                     HS_ITERS, HS_ALPHA))
+    got = a["results"]
+    fused_err = exact("dist (a) horn_schunck_sharded_fused vs horn_schunck",
+                      got["hs_fused"], hs_ref)
+    unfused_err = check_close("dist (a) horn_schunck_sharded vs horn_schunck",
+                              list(zip(got["hs_unfused"], hs_ref)), PATH_TOL)
+    ba_err = check_ba("dist (a)", got, ba_frames, a["mesh"])
+    fast_sweeps = [b * BA_FUSE for b in ba_blocks]
+    if got["ba_sweeps"] != fast_sweeps:
+        raise AssertionError(f"dist (a) BA sweeps {got['ba_sweeps']}, "
+                             f"optical_flow_pyramid_fast's {fast_sweeps}")
+    fast_err = check_close("dist (a) BA vs optical_flow_pyramid_fast",
+                           list(zip(got["ba"], ba_flow)), PATH_TOL)
+    log("dist", run="a", mesh=a["mesh"], backend=a["backend"],
+        launches=json.dumps(a["launches"]), ba_sweeps=got["ba_sweeps"],
+        fast_sweeps=fast_sweeps,
+        hs_fused_vs_horn_schunck=fused_err,
+        hs_unfused_vs_horn_schunck=unfused_err,
+        ba_vs_mesh_reference=ba_err, ba_vs_fast=fast_err,
+        single_device_horn_schunck_4k_ms=single_ms,
+        **{f"{k}_ms": v for k, v in a["ms"].items()})
+    for row in got["weak"]["runs"]:
+        log("dist", run="a", weak_scaling=json.dumps(row))
+    log("dist", run="a", weak_1dev_mpix_per_s=got["weak_1dev_mpix_per_s"])
+    del hs_ref, hs4k
+    torch.cuda.synchronize()
+
+    cpu = run_on_mesh(dist_rank, 1, "gloo", "cpu", kwargs={"full": False},
+                      timeout=DIST_TIMEOUT_S, threads=DIST_CPU_THREADS)
+    errs = {key: check_close(f"dist (a) {key} card vs CPU",
+                             list(zip(got[key], cpu["results"][key])),
+                             PATH_TOL)
+            for key in ("hs_fused", "hs_unfused", "ba", "dynamic")}
+    if cpu["results"]["ba_sweeps"] != got["ba_sweeps"]:
+        raise AssertionError(f"dist BA sweeps: card {got['ba_sweeps']}, CPU "
+                             f"{cpu['results']['ba_sweeps']}")
+    log("dist", run="a_vs_cpu", **{f"{k}_max_abs_err": v
+                                   for k, v in errs.items()},
+        **{f"chip_host_cpu_f32_{k}_ms": v for k, v in cpu["ms"].items()})
+
+    b = run_on_mesh(dist_rank, DIST_GLOO_RANKS, "gloo", "cuda",
+                    kwargs={"full": False}, timeout=DIST_TIMEOUT_S)
+    got_b = b["results"]
+    errs = {key: exact(f"dist (b) {key} vs (a)", got_b[key], got[key])
+            for key in ("hs_fused", "hs_unfused", "dynamic")}
+    errs["ba_vs_mesh_reference"] = check_ba("dist (b)", got_b, ba_frames,
+                                            b["mesh"])
+    # A level whose tiles take another branch on 2x2 than on 1x1 checks
+    # its stop rule at another cadence, so (a) and (b) may run other sweeps
+    # there; where they run the same, they must agree.
+    errs["ba"], _ = max_err(list(zip(got_b["ba"], got["ba"])))
+    if got_b["ba_sweeps"] == got["ba_sweeps"]:
+        check_close("dist (b) BA vs (a)", list(zip(got_b["ba"], got["ba"])),
+                    PATH_TOL)
+    log("dist", run="b", mesh=b["mesh"], backend=b["backend"],
+        ba_sweeps=got_b["ba_sweeps"],
+        launches_rank0=json.dumps(b["launches"]),
+        weak_scaling=json.dumps(got_b["weak"]["runs"]),
+        **{f"{k}_vs_a": v for k, v in errs.items()},
+        **{f"staged_check_{k}_ms": v for k, v in b["ms"].items()})
+    return a["launches"]
 
 
 def main() -> None:
@@ -1073,6 +1553,8 @@ def main() -> None:
     phase_ba(*ba)
     phase_fb(fb_runs, stream)
     phase_bm(dev, *bm)
+    for k, n in phase_dist(dev, ba).items():
+        launches[k] = launches.get(k, 0) + n
     kernels = []
     for kname, source, replaces in (
             ("hs_sweeps", "tpuflow_torch/csrc/hs_stencil.cu",
@@ -1088,7 +1570,15 @@ def main() -> None:
             ("irls_gated_sweeps", "tpuflow_torch/csrc/irls_gated.cu",
              "tpuflow/kernels/irls_stencil.py:199"),
             ("mean_shift_filter", "tpuflow_torch/csrc/ms_filter.cu",
-             "tpuflow/kernels/ms_filter.py:129")):
+             "tpuflow/kernels/ms_filter.py:129"),
+            ("hs_tile_sweeps", "tpuflow_torch/csrc/hs_stencil.cu",
+             "tpuflow/kernels/hs_stencil.py:350"),
+            ("horn_schunck_resident", "tpuflow_torch/csrc/hs_resident.cu",
+             "tpuflow/kernels/hs_stencil.py:434"),
+            ("horn_schunck_resident2", "tpuflow_torch/csrc/hs_resident.cu",
+             "tpuflow/kernels/hs_stencil.py:560"),
+            ("irls_tile_sweeps", "tpuflow_torch/csrc/irls_stencil.cu",
+             "tpuflow/kernels/irls_stencil.py:353")):
         if launches.get(kname, 0) < 1:
             raise AssertionError(f"{kname} was not launched on the main path")
         kernels.append({"name": kname, "route": "cuda", "source": source,

@@ -24,53 +24,29 @@
 // columns left to right) and the build disables FMA contraction, so the
 // kernel rounds as the plain PyTorch version does.
 
+// hs_tile_kernel replaces tpuflow/kernels/hs_stencil.py::hs_tile_sweeps,
+// the tile body of the sharded solver (tpuflow/dist/solvers.py): the same
+// sweeps on one already halo'd tile of its own pitch, whose (0, 0) sits at
+// frame coordinates (row0, col0) of an (img_h, img_w) frame; it writes only
+// the core. Its blocks tile that core as hs_sweeps_kernel's tile the frame,
+// each loading its part of the halo'd tile (out-of-frame cells zeroed, as
+// the TPU kernel multiplies by its inside mask); both kernels run the one
+// sweep body below, so they keep one arithmetic. Cells past the tile's end
+// read as zero; after `fuse` sweeps their influence reaches need = fuse*r
+// cells inward, which is the halo the core does not include.
+
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void hs_sweeps_kernel(
-    const float* __restrict__ u_in, const float* __restrict__ v_in,
-    const float* __restrict__ gx, const float* __restrict__ gy,
-    const float* __restrict__ gt, const float* __restrict__ inv,
-    float* __restrict__ u_out, float* __restrict__ v_out,
-    int h, int w, int tile_h, int tile_w, int window, int fuse,
-    float inv_area) {
-  extern __shared__ float smem[];
+// `fuse` sweeps of the shared tile (sh x sw cells, frame coordinates of
+// its (0, 0) at (row0, col0)); on return u_a/v_a hold the last sweep.
+__device__ __forceinline__ void hs_sweeps_shared(
+    float*& u_a, float*& v_a, float*& u_b, float*& v_b,
+    const float* s_gx, const float* s_gy, const float* s_gt,
+    const float* s_inv, int sh, int sw, int row0, int col0, int h, int w,
+    int window, int fuse, float inv_area) {
   const int r = window / 2;
-  const int halo = fuse * r;
-  const int sh = tile_h + 2 * halo;
-  const int sw = tile_w + 2 * halo;
-  const int n = sh * sw;
-  float* u_a = smem;
-  float* v_a = u_a + n;
-  float* u_b = v_a + n;
-  float* v_b = u_b + n;
-  float* s_gx = v_b + n;
-  float* s_gy = s_gx + n;
-  float* s_gt = s_gy + n;
-  float* s_inv = s_gt + n;
-  // Frame coordinates of the shared tile's (0, 0).
-  const int row0 = blockIdx.y * tile_h - halo;
-  const int col0 = blockIdx.x * tile_w - halo;
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int y = row0 + i / sw;
-    const int x = col0 + i % sw;
-    if (y >= 0 && y < h && x >= 0 && x < w) {
-      const size_t g = (size_t)y * w + x;
-      u_a[i] = u_in[g];
-      v_a[i] = v_in[g];
-      s_gx[i] = gx[g];
-      s_gy[i] = gy[g];
-      s_gt[i] = gt[g];
-      s_inv[i] = inv[g];
-    } else {
-      u_a[i] = 0.f;
-      v_a[i] = 0.f;
-    }
-  }
-  __syncthreads();
-
   for (int t = 1; t <= fuse; ++t) {
     // Sweep t is valid on [t*r, size - t*r): it reads the r-ring that
     // sweep t-1 left valid.
@@ -117,6 +93,53 @@ __global__ void hs_sweeps_kernel(
     v_a = v_b;
     v_b = swap;
   }
+}
+
+__global__ void hs_sweeps_kernel(
+    const float* __restrict__ u_in, const float* __restrict__ v_in,
+    const float* __restrict__ gx, const float* __restrict__ gy,
+    const float* __restrict__ gt, const float* __restrict__ inv,
+    float* __restrict__ u_out, float* __restrict__ v_out,
+    int h, int w, int tile_h, int tile_w, int window, int fuse,
+    float inv_area) {
+  extern __shared__ float smem[];
+  const int r = window / 2;
+  const int halo = fuse * r;
+  const int sh = tile_h + 2 * halo;
+  const int sw = tile_w + 2 * halo;
+  const int n = sh * sw;
+  float* u_a = smem;
+  float* v_a = u_a + n;
+  float* u_b = v_a + n;
+  float* v_b = u_b + n;
+  float* s_gx = v_b + n;
+  float* s_gy = s_gx + n;
+  float* s_gt = s_gy + n;
+  float* s_inv = s_gt + n;
+  // Frame coordinates of the shared tile's (0, 0).
+  const int row0 = blockIdx.y * tile_h - halo;
+  const int col0 = blockIdx.x * tile_w - halo;
+
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int y = row0 + i / sw;
+    const int x = col0 + i % sw;
+    if (y >= 0 && y < h && x >= 0 && x < w) {
+      const size_t g = (size_t)y * w + x;
+      u_a[i] = u_in[g];
+      v_a[i] = v_in[g];
+      s_gx[i] = gx[g];
+      s_gy[i] = gy[g];
+      s_gt[i] = gt[g];
+      s_inv[i] = inv[g];
+    } else {
+      u_a[i] = 0.f;
+      v_a[i] = 0.f;
+    }
+  }
+  __syncthreads();
+
+  hs_sweeps_shared(u_a, v_a, u_b, v_b, s_gx, s_gy, s_gt, s_inv, sh, sw, row0,
+                   col0, h, w, window, fuse, inv_area);
 
   for (int i = threadIdx.x; i < tile_h * tile_w; i += blockDim.x) {
     const int ly = halo + i / tile_w;
@@ -127,6 +150,76 @@ __global__ void hs_sweeps_kernel(
       const size_t g = (size_t)y * w + x;
       u_out[g] = u_a[ly * sw + lx];
       v_out[g] = v_a[ly * sw + lx];
+    }
+  }
+}
+
+// One halo'd (hh x hw) tile in, its (hh - 2*need) x (hw - 2*need) core
+// out; the tile's (0, 0) sits at frame coordinates (row0, col0).
+__global__ void hs_tile_kernel(
+    const float* __restrict__ u_in, const float* __restrict__ v_in,
+    const float* __restrict__ gx, const float* __restrict__ gy,
+    const float* __restrict__ gt, const float* __restrict__ inv,
+    float* __restrict__ u_out, float* __restrict__ v_out,
+    int hh, int hw, int row0, int col0, int img_h, int img_w,
+    int tile_h, int tile_w, int window, int fuse, float inv_area) {
+  extern __shared__ float smem[];
+  const int need = fuse * (window / 2);
+  const int sh = tile_h + 2 * need;
+  const int sw = tile_w + 2 * need;
+  const int n = sh * sw;
+  float* u_a = smem;
+  float* v_a = u_a + n;
+  float* u_b = v_a + n;
+  float* v_b = u_b + n;
+  float* s_gx = v_b + n;
+  float* s_gy = s_gx + n;
+  float* s_gt = s_gy + n;
+  float* s_inv = s_gt + n;
+  // Tile coordinates, then frame coordinates, of the shared tile's (0, 0).
+  const int ay0 = blockIdx.y * tile_h;
+  const int ax0 = blockIdx.x * tile_w;
+  const int fy0 = row0 + ay0;
+  const int fx0 = col0 + ax0;
+
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int ay = ay0 + i / sw;
+    const int ax = ax0 + i % sw;
+    float u = 0.f, v = 0.f, a = 0.f, b = 0.f, c = 0.f, d = 0.f;
+    if (ay < hh && ax < hw) {
+      const size_t g = (size_t)ay * hw + ax;
+      const int y = row0 + ay;
+      const int x = col0 + ax;
+      if (y >= 0 && y < img_h && x >= 0 && x < img_w) {
+        u = u_in[g];
+        v = v_in[g];
+      }
+      a = gx[g];
+      b = gy[g];
+      c = gt[g];
+      d = inv[g];
+    }
+    u_a[i] = u;
+    v_a[i] = v;
+    s_gx[i] = a;
+    s_gy[i] = b;
+    s_gt[i] = c;
+    s_inv[i] = d;
+  }
+  __syncthreads();
+
+  hs_sweeps_shared(u_a, v_a, u_b, v_b, s_gx, s_gy, s_gt, s_inv, sh, sw, fy0,
+                   fx0, img_h, img_w, window, fuse, inv_area);
+
+  const int th = hh - 2 * need;
+  const int tw = hw - 2 * need;
+  for (int i = threadIdx.x; i < tile_h * tile_w; i += blockDim.x) {
+    const int cy = ay0 + i / tile_w;
+    const int cx = ax0 + i % tile_w;
+    if (cy < th && cx < tw) {
+      const int l = (need + i / tile_w) * sw + need + i % tile_w;
+      u_out[(size_t)cy * tw + cx] = u_a[l];
+      v_out[(size_t)cy * tw + cx] = v_a[l];
     }
   }
 }
@@ -150,6 +243,28 @@ extern "C" int hs_sweeps_launch(
       (const float*)u, (const float*)v, (const float*)gx, (const float*)gy,
       (const float*)gt, (const float*)inv, (float*)u_out, (float*)v_out,
       h, w, tile_h, tile_w, window, fuse, inv_area);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hs_tile_launch(
+    const void* u, const void* v, const void* gx, const void* gy,
+    const void* gt, const void* inv, void* u_out, void* v_out,
+    int hh, int hw, int row0, int col0, int img_h, int img_w, int tile_h,
+    int tile_w, int window, int fuse, float inv_area, int threads,
+    void* stream) {
+  const int need = fuse * (window / 2);
+  const size_t smem = 8 * sizeof(float) * (size_t)(tile_h + 2 * need) *
+                      (size_t)(tile_w + 2 * need);
+  cudaError_t err = cudaFuncSetAttribute(
+      hs_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int th = hh - 2 * need;
+  const int tw = hw - 2 * need;
+  const dim3 grid((tw + tile_w - 1) / tile_w, (th + tile_h - 1) / tile_h);
+  hs_tile_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)u, (const float*)v, (const float*)gx, (const float*)gy,
+      (const float*)gt, (const float*)inv, (float*)u_out, (float*)v_out, hh,
+      hw, row0, col0, img_h, img_w, tile_h, tile_w, window, fuse, inv_area);
   return (int)cudaGetLastError();
 }
 

@@ -26,6 +26,17 @@
 // sync. The build disables FMA contraction and the terms are summed in
 // the plain version's order, so the kernel rounds as PyTorch's eager ops do.
 
+// irls_tile_kernel replaces tpuflow/kernels/irls_stencil.py::
+// irls_tile_sweeps, the tile body of the sharded IRLS level
+// (tpuflow/dist/solvers.py): the same sweeps on one already halo'd tile of
+// its own pitch whose (0, 0) sits at frame coordinates (row0, col0) of an
+// (img_h, img_w) frame, neighbour terms masked by frame coordinates as
+// tpuflow's _nb_masks builds them; it writes only the core. As in
+// irls_sweeps_kernel, a cell outside the frame is neither computed nor
+// read (its neighbour terms are masked), so the core, which lies in the
+// frame, is what tpuflow's tile body computes. Both kernels run the one
+// sweep body below.
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -35,44 +46,13 @@ __device__ __forceinline__ float psi_gm(float x, float sigma) {
   return 2.0f * x * sigma / (d * d);
 }
 
-__global__ void irls_sweeps_kernel(
-    const float* __restrict__ u_in, const float* __restrict__ v_in,
-    const float* __restrict__ gx, const float* __restrict__ gy,
-    const float* __restrict__ it, const float* __restrict__ sup_x,
-    const float* __restrict__ sup_y, float* __restrict__ u_out,
-    float* __restrict__ v_out, int h, int w, int tile_h, int tile_w,
-    int fuse, float lambda_d, float lambda_s, float sigma_d, float sigma_s) {
-  extern __shared__ float smem[];
-  const int sh = tile_h + 2 * fuse;
-  const int sw = tile_w + 2 * fuse;
-  const int n = sh * sw;
-  float* u_a = smem;
-  float* v_a = u_a + n;
-  float* u_b = v_a + n;
-  float* v_b = u_b + n;
-  float* s_gx = v_b + n;
-  float* s_gy = s_gx + n;
-  float* s_it = s_gy + n;
-  const float sx = *sup_x;
-  const float sy = *sup_y;
-  // Frame coordinates of the shared tile's (0, 0).
-  const int row0 = blockIdx.y * tile_h - fuse;
-  const int col0 = blockIdx.x * tile_w - fuse;
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int y = row0 + i / sw;
-    const int x = col0 + i % sw;
-    if (y >= 0 && y < h && x >= 0 && x < w) {
-      const size_t g = (size_t)y * w + x;
-      u_a[i] = u_in[g];
-      v_a[i] = v_in[g];
-      s_gx[i] = gx[g];
-      s_gy[i] = gy[g];
-      s_it[i] = it[g];
-    }
-  }
-  __syncthreads();
-
+// `fuse` sweeps of the shared tile (sh x sw cells, frame coordinates of
+// its (0, 0) at (row0, col0)); on return u_a/v_a hold the last sweep.
+__device__ __forceinline__ void irls_sweeps_shared(
+    float*& u_a, float*& v_a, float*& u_b, float*& v_b, const float* s_gx,
+    const float* s_gy, const float* s_it, float sx, float sy, int sh, int sw,
+    int row0, int col0, int h, int w, int fuse, float lambda_d,
+    float lambda_s, float sigma_d, float sigma_s) {
   for (int t = 1; t <= fuse; ++t) {
     // Sweep t is valid on [t, size - t): it reads the ring that sweep t-1
     // left valid.
@@ -119,6 +99,49 @@ __global__ void irls_sweeps_kernel(
     v_a = v_b;
     v_b = swap;
   }
+}
+
+__global__ void irls_sweeps_kernel(
+    const float* __restrict__ u_in, const float* __restrict__ v_in,
+    const float* __restrict__ gx, const float* __restrict__ gy,
+    const float* __restrict__ it, const float* __restrict__ sup_x,
+    const float* __restrict__ sup_y, float* __restrict__ u_out,
+    float* __restrict__ v_out, int h, int w, int tile_h, int tile_w,
+    int fuse, float lambda_d, float lambda_s, float sigma_d, float sigma_s) {
+  extern __shared__ float smem[];
+  const int sh = tile_h + 2 * fuse;
+  const int sw = tile_w + 2 * fuse;
+  const int n = sh * sw;
+  float* u_a = smem;
+  float* v_a = u_a + n;
+  float* u_b = v_a + n;
+  float* v_b = u_b + n;
+  float* s_gx = v_b + n;
+  float* s_gy = s_gx + n;
+  float* s_it = s_gy + n;
+  const float sx = *sup_x;
+  const float sy = *sup_y;
+  // Frame coordinates of the shared tile's (0, 0).
+  const int row0 = blockIdx.y * tile_h - fuse;
+  const int col0 = blockIdx.x * tile_w - fuse;
+
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int y = row0 + i / sw;
+    const int x = col0 + i % sw;
+    if (y >= 0 && y < h && x >= 0 && x < w) {
+      const size_t g = (size_t)y * w + x;
+      u_a[i] = u_in[g];
+      v_a[i] = v_in[g];
+      s_gx[i] = gx[g];
+      s_gy[i] = gy[g];
+      s_it[i] = it[g];
+    }
+  }
+  __syncthreads();
+
+  irls_sweeps_shared(u_a, v_a, u_b, v_b, s_gx, s_gy, s_it, sx, sy, sh, sw,
+                     row0, col0, h, w, fuse, lambda_d, lambda_s, sigma_d,
+                     sigma_s);
 
   for (int i = threadIdx.x; i < tile_h * tile_w; i += blockDim.x) {
     const int ly = fuse + i / tile_w;
@@ -129,6 +152,70 @@ __global__ void irls_sweeps_kernel(
       const size_t g = (size_t)y * w + x;
       u_out[g] = u_a[ly * sw + lx];
       v_out[g] = v_a[ly * sw + lx];
+    }
+  }
+}
+
+// One halo'd (hh x hw) tile in, its (hh - 2*fuse) x (hw - 2*fuse) core
+// out; the tile's (0, 0) sits at frame coordinates (row0, col0).
+__global__ void irls_tile_kernel(
+    const float* __restrict__ u_in, const float* __restrict__ v_in,
+    const float* __restrict__ gx, const float* __restrict__ gy,
+    const float* __restrict__ it, const float* __restrict__ sup_x,
+    const float* __restrict__ sup_y, float* __restrict__ u_out,
+    float* __restrict__ v_out, int hh, int hw, int row0, int col0,
+    int img_h, int img_w, int tile_h, int tile_w, int fuse, float lambda_d,
+    float lambda_s, float sigma_d, float sigma_s) {
+  extern __shared__ float smem[];
+  const int sh = tile_h + 2 * fuse;
+  const int sw = tile_w + 2 * fuse;
+  const int n = sh * sw;
+  float* u_a = smem;
+  float* v_a = u_a + n;
+  float* u_b = v_a + n;
+  float* v_b = u_b + n;
+  float* s_gx = v_b + n;
+  float* s_gy = s_gx + n;
+  float* s_it = s_gy + n;
+  const float sx = *sup_x;
+  const float sy = *sup_y;
+  // Tile coordinates of the shared tile's (0, 0).
+  const int ay0 = blockIdx.y * tile_h;
+  const int ax0 = blockIdx.x * tile_w;
+
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int ay = ay0 + i / sw;
+    const int ax = ax0 + i % sw;
+    float u = 0.f, v = 0.f, a = 0.f, b = 0.f, c = 0.f;
+    if (ay < hh && ax < hw) {
+      const size_t g = (size_t)ay * hw + ax;
+      u = u_in[g];
+      v = v_in[g];
+      a = gx[g];
+      b = gy[g];
+      c = it[g];
+    }
+    u_a[i] = u;
+    v_a[i] = v;
+    s_gx[i] = a;
+    s_gy[i] = b;
+    s_it[i] = c;
+  }
+  __syncthreads();
+
+  irls_sweeps_shared(u_a, v_a, u_b, v_b, s_gx, s_gy, s_it, sx, sy, sh, sw,
+                     row0 + ay0, col0 + ax0, img_h, img_w, fuse, lambda_d,
+                     lambda_s, sigma_d, sigma_s);
+
+  const int th = hh - 2 * fuse;
+  const int tw = hw - 2 * fuse;
+  for (int i = threadIdx.x; i < tile_h * tile_w; i += blockDim.x) {
+    const int cy = ay0 + i / tile_w;
+    const int cx = ax0 + i % tile_w;
+    if (cy < th && cx < tw) {
+      const int l = (fuse + i / tile_w) * sw + fuse + i % tile_w;
+      u_out[(size_t)cy * tw + cx] = u_a[l];
+      v_out[(size_t)cy * tw + cx] = v_a[l];
     }
   }
 }
@@ -153,6 +240,29 @@ extern "C" int irls_sweeps_launch(
       (const float*)it, (const float*)sup_x, (const float*)sup_y,
       (float*)u_out, (float*)v_out, h, w, tile_h, tile_w, fuse, lambda_d,
       lambda_s, sigma_d, sigma_s);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int irls_tile_launch(
+    const void* u, const void* v, const void* gx, const void* gy,
+    const void* it, const void* sup_x, const void* sup_y, void* u_out,
+    void* v_out, int hh, int hw, int row0, int col0, int img_h, int img_w,
+    int tile_h, int tile_w, int fuse, float lambda_d, float lambda_s,
+    float sigma_d, float sigma_s, int threads, void* stream) {
+  const size_t smem = 7 * sizeof(float) * (size_t)(tile_h + 2 * fuse) *
+                      (size_t)(tile_w + 2 * fuse);
+  cudaError_t err = cudaFuncSetAttribute(
+      irls_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int th = hh - 2 * fuse;
+  const int tw = hw - 2 * fuse;
+  const dim3 grid((tw + tile_w - 1) / tile_w, (th + tile_h - 1) / tile_h);
+  irls_tile_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)u, (const float*)v, (const float*)gx, (const float*)gy,
+      (const float*)it, (const float*)sup_x, (const float*)sup_y,
+      (float*)u_out, (float*)v_out, hh, hw, row0, col0, img_h, img_w, tile_h,
+      tile_w, fuse, lambda_d, lambda_s, sigma_d, sigma_s);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,26 @@
+"""Multi-device flow: 2-D image tiling over a mesh of ``torch.distributed``
+ranks (counterpart of :mod:`tpuflow.dist`).
+
+NCCL between cards, gloo on the CPU (and, staged through the host, between
+ranks that share one card). :func:`run_on_mesh` spawns the ranks and runs a
+function on each. Not ported yet (ROADMAP.md, Queue 1): ``farneback_sharded``,
+the sharded block matching and refine (``dist/bm.py``, ``dist/bm_refine.py``),
+``mean_shift_filter_sharded`` and the sharded ops of ``dist/ops.py``.
+"""
+
+from tpuflow_torch.dist.mesh import Mesh, make_mesh, mesh_factor, run_on_mesh  # noqa: F401
+from tpuflow_torch.dist.halo import (  # noqa: F401
+    gather_tiles,
+    halo_pad_2d,
+    shift_along,
+    tile_of,
+)
+from tpuflow_torch.dist.solvers import (  # noqa: F401
+    horn_schunck_sharded,
+    horn_schunck_sharded_fused,
+    horn_schunck_sharded_fused_dynamic,
+    irls_level_sharded,
+    irls_level_sharded_fused,
+)
+from tpuflow_torch.dist.pyramid import optical_flow_pyramid_sharded  # noqa: F401
+from tpuflow_torch.dist.scaling import weak_scaling_report  # noqa: F401

@@ -15,6 +15,14 @@ H100 and how the fused design answers), on a CPU tensor through
 ``horn_schunck_pallas`` runs its blocks. The TPU tiling knobs (tile
 alignment, ``pipelined``, ``mxu``, ``roll``, ``interpret``) have no
 counterpart here.
+
+:func:`hs_tile_sweeps` is ``hs_tile_sweeps``, the tile body of the sharded
+solver (:mod:`tpuflow_torch.dist.solvers`): the same sweeps on one halo'd
+tile at a frame offset, through the same CUDA source.
+:func:`horn_schunck_resident` and :func:`horn_schunck_resident2` are
+``horn_schunck_pallas_resident``/``_resident2``: the whole solve in one
+launch of ``csrc/hs_resident.cu``. ``strip`` (a Mosaic register-spill
+workaround) and ``interpret`` have no counterpart.
 """
 
 from __future__ import annotations
@@ -25,9 +33,14 @@ import torch
 
 from tpuflow_torch.core import borders as bd
 from tpuflow_torch.kernels import _build
+from tpuflow_torch.kernels.fb_kernels import _box_sum_valid
 
-# Launches of the CUDA kernel in this process (never the plain version).
+# Launches of the CUDA kernels in this process (never the plain versions):
+# hs_sweeps, hs_tile_sweeps, horn_schunck_resident and _resident2.
 LAUNCHES = 0
+LAUNCHES_TILE = 0
+LAUNCHES_RESIDENT = 0
+LAUNCHES_RESIDENT2 = 0
 # Core tile of one block and its thread count. The shared tile is the core
 # plus a fuse*r halo on each side: 8 float fields, so
 # 8 * 4 * (TILE_H + 2*fuse*r) * (TILE_W + 2*fuse*r) bytes.
@@ -37,6 +50,13 @@ TILE_W = 64
 THREADS = 512
 # Sweeps per launch on the card, by the same sweep (the TPU's was 10).
 DEFAULT_FUSE = 3
+# Block tiles the tile kernel tries in order, the first whose shared tile
+# fits (a deep fuse needs a smaller core per block).
+TILE_CHOICES = ((TILE_H, TILE_W), (32, 32), (16, 32), (16, 16), (8, 8))
+# The resident kernel's block tile and threads (u, v and an r halo in
+# shared memory).
+RESIDENT_TILE = (32, 64)
+RESIDENT_THREADS = 256
 
 
 def _lib() -> ctypes.CDLL:
@@ -45,28 +65,46 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.hs_sweeps_launch.restype = ctypes.c_int
+    lib.hs_tile_launch.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.hs_tile_launch.restype = ctypes.c_int
     lib.hs_sweeps_error_string.argtypes = [ctypes.c_int]
     lib.hs_sweeps_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def smem_bytes(window: int, fuse: int) -> int:
+def _lib_resident() -> ctypes.CDLL:
+    lib = _build.load("hs_resident")
+    lib.hs_resident_launch.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+           ctypes.POINTER(ctypes.c_int)])
+    lib.hs_resident_launch.restype = ctypes.c_int
+    lib.hs_resident_error_string.argtypes = [ctypes.c_int]
+    lib.hs_resident_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def smem_bytes(window: int, fuse: int, tile=(TILE_H, TILE_W)) -> int:
     halo = fuse * (window // 2)
-    return 8 * 4 * (TILE_H + 2 * halo) * (TILE_W + 2 * halo)
+    return 8 * 4 * (tile[0] + 2 * halo) * (tile[1] + 2 * halo)
+
+
+def tile_for(window: int, fuse: int) -> tuple[int, int]:
+    """The tile kernel's block tile for ``fuse`` sweeps: the first of
+    :data:`TILE_CHOICES` whose shared tile fits one block."""
+    for tile in TILE_CHOICES:
+        if smem_bytes(window, fuse, tile) <= _build.MAX_SMEM_BYTES:
+            return tile
+    raise ValueError(f"hs_tile_sweeps: fuse={fuse} at window={window} "
+                     "fits no block's shared memory")
 
 
 def _box_sum(a: torch.Tensor, window: int) -> torch.Tensor:
     """window x window box sum with zeros beyond the frame, in the TPU
     kernel's order: vertical sums per column, then columns left to right."""
-    h, w = a.shape
-    p = bd.pad2d(a, window // 2, bd.ZERO)
-    rows = p[0:h, :]
-    for d in range(1, window):
-        rows = rows + p[d : d + h, :]
-    out = rows[:, 0:w]
-    for d in range(1, window):
-        out = out + rows[:, d : d + w]
-    return out
+    return _box_sum_valid(bd.pad2d(a, window // 2, bd.ZERO), window)
 
 
 def hs_sweeps_plain(u, v, gx, gy, gt, inv_denom, window: int = 5,
@@ -145,3 +183,173 @@ def horn_schunck_fused(prev: torch.Tensor, next: torch.Tensor,
     v = torch.zeros_like(gt)
     return hs_iterate(u, v, gx, gy, gt, inv_denom, window_size,
                       max_iterations, fuse)
+
+
+def _inside_mask(row0: int, col0: int, hh: int, hw: int, img_h: int,
+                 img_w: int, like: torch.Tensor) -> torch.Tensor:
+    """1 where local cell (y, x) of a tile whose (0, 0) sits at frame
+    coordinates (row0, col0) is inside the (img_h, img_w) frame, else 0."""
+    ys = torch.arange(hh, device=like.device) + row0
+    xs = torch.arange(hw, device=like.device) + col0
+    return (((ys >= 0) & (ys < img_h))[:, None]
+            & ((xs >= 0) & (xs < img_w))[None, :]).to(like.dtype)
+
+
+def hs_tile_sweeps_plain(u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0: int,
+                         col0: int, img_h: int, img_w: int, window: int,
+                         fuse: int):
+    """``fuse`` HS sweeps on one halo'd tile, in plain PyTorch: tpuflow's
+    ``_hs_sweeps`` under its inside mask (u, v zeroed outside the frame
+    at load and after every sweep), valid regions shrinking by r per
+    sweep. Returns the (hh - 2*fuse*r, hw - 2*fuse*r) core."""
+    hh, hw = u_p.shape
+    r = window // 2
+    inv_area = 1.0 / (window * window)
+    mask = _inside_mask(row0, col0, hh, hw, img_h, img_w, u_p)
+    u = u_p * mask
+    v = v_p * mask
+    for t in range(fuse):
+        o = r * (t + 1)
+        core = (slice(o, hh - o), slice(o, hw - o))
+        ub = _box_sum_valid(u, window) * inv_area
+        vb = _box_sum_valid(v, window) * inv_area
+        gxc, gyc = gx_p[core], gy_p[core]
+        upd = (gxc * ub + gyc * vb + gt_p[core]) * inv_p[core]
+        u = (ub - gxc * upd) * mask[core]
+        v = (vb - gyc * upd) * mask[core]
+    return u, v
+
+
+def hs_tile_sweeps(u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0: int, col0: int,
+                   img_h: int, img_w: int, window: int = 5, fuse: int = 1):
+    """``fuse`` HS sweeps on one halo'd tile; returns its (th, tw) core.
+
+    The six fields are (th + 2*fuse*r, tw + 2*fuse*r) with halos already
+    exchanged; (row0, col0) are the frame coordinates of their (0, 0) in an
+    (img_h, img_w) frame. CPU tensors take :func:`hs_tile_sweeps_plain`;
+    CUDA tensors (contiguous float32) one launch of the tile kernel of
+    ``csrc/hs_stencil.cu``, or raise.
+    """
+    global LAUNCHES_TILE
+    _build.check_fields("hs_tile_sweeps", u_p, v_p, gx_p, gy_p, gt_p, inv_p)
+    if window < 1 or window % 2 == 0 or fuse < 1:
+        raise ValueError(f"hs_tile_sweeps: need an odd window and fuse >= 1, "
+                         f"got window={window}, fuse={fuse}")
+    hh, hw = u_p.shape
+    need = fuse * (window // 2)
+    if hh <= 2 * need or hw <= 2 * need:
+        raise ValueError(f"hs_tile_sweeps: a {hh}x{hw} tile has no core "
+                         f"inside a {need}-pixel halo")
+    if u_p.device.type == "cpu":
+        return hs_tile_sweeps_plain(u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0,
+                                    col0, img_h, img_w, window, fuse)
+    tile_h, tile_w = tile_for(window, fuse)
+    lib = _lib()
+    u_out = u_p.new_empty((hh - 2 * need, hw - 2 * need))
+    v_out = torch.empty_like(u_out)
+    with torch.cuda.device(u_p.device):
+        rc = lib.hs_tile_launch(
+            u_p.data_ptr(), v_p.data_ptr(), gx_p.data_ptr(), gy_p.data_ptr(),
+            gt_p.data_ptr(), inv_p.data_ptr(), u_out.data_ptr(),
+            v_out.data_ptr(), hh, hw, int(row0), int(col0), img_h, img_w,
+            tile_h, tile_w, window, fuse, 1.0 / (window * window), THREADS,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(lib, "hs_sweeps", rc)
+    LAUNCHES_TILE += 1
+    return u_out, v_out
+
+
+def horn_schunck_resident_plain(prev, next, window_size: int = 5,
+                                max_iterations: int = 100,
+                                alpha: float = 1.0):
+    """:func:`horn_schunck_resident` in plain PyTorch: zero start, each
+    sweep dividing by alpha^2 + gx^2 + gy^2 (``_hs_resident_kernel``)."""
+    from tpuflow_torch.solvers.horn_schunck import hs_gradients
+
+    gx, gy, gt = hs_gradients(prev, next)
+    inv_area = 1.0 / (window_size * window_size)
+    u = torch.zeros_like(gt)
+    v = torch.zeros_like(gt)
+    for _ in range(max_iterations):
+        ub = _box_sum(u, window_size) * inv_area
+        vb = _box_sum(v, window_size) * inv_area
+        upd = (gx * ub + gy * vb + gt) / (alpha * alpha + gx * gx + gy * gy)
+        u = ub - gx * upd
+        v = vb - gy * upd
+    return u, v
+
+
+def horn_schunck_resident2_plain(prev, next, window_size: int = 5,
+                                 max_iterations: int = 100,
+                                 alpha: float = 1.0):
+    """:func:`horn_schunck_resident2` in plain PyTorch: the reciprocal
+    1 / (alpha^2 + gx^2 + gy^2) once, then the sweeps of
+    :func:`hs_sweeps_plain` (``_hs_resident2_kernel``)."""
+    from tpuflow_torch.solvers.horn_schunck import hs_gradients
+
+    gx, gy, gt = hs_gradients(prev, next)
+    inv = 1.0 / (alpha * alpha + gx * gx + gy * gy)
+    u = torch.zeros_like(gt)
+    return hs_sweeps_plain(u, u, gx, gy, gt, inv, window_size,
+                           max_iterations)
+
+
+def _resident(prev, next, window_size, max_iterations, alpha, recip):
+    global LAUNCHES_RESIDENT, LAUNCHES_RESIDENT2
+    from tpuflow_torch.solvers.horn_schunck import hs_gradients
+
+    name = "horn_schunck_resident2" if recip else "horn_schunck_resident"
+    if window_size < 1 or window_size % 2 == 0 or max_iterations < 0:
+        raise ValueError(f"{name}: need an odd window and max_iterations "
+                         f">= 0, got {window_size}, {max_iterations}")
+    _build.check_fields(name, prev, next)
+    if prev.device.type == "cpu":
+        plain = (horn_schunck_resident2_plain if recip
+                 else horn_schunck_resident_plain)
+        return plain(prev, next, window_size, max_iterations, alpha)
+    gx, gy, gt = hs_gradients(prev, next)
+    h, w = gx.shape
+    lib = _lib_resident()
+    u0, v0, u1, v1 = (torch.empty_like(gx) for _ in range(4))
+    inv = torch.empty_like(gx) if recip else None
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(gx.device):
+        rc = lib.hs_resident_launch(
+            gx.data_ptr(), gy.data_ptr(), gt.data_ptr(),
+            None if inv is None else inv.data_ptr(), u0.data_ptr(),
+            v0.data_ptr(), u1.data_ptr(), v1.data_ptr(), h, w,
+            *RESIDENT_TILE, window_size, max_iterations,
+            float(alpha * alpha), 1.0 / (window_size * window_size),
+            int(recip), RESIDENT_THREADS,
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(grid))
+    _build.check_launch(lib, "hs_resident", rc)
+    if recip:
+        LAUNCHES_RESIDENT2 += 1
+    else:
+        LAUNCHES_RESIDENT += 1
+    return (u0, v0) if max_iterations % 2 == 0 else (u1, v1)
+
+
+def horn_schunck_resident(prev: torch.Tensor, next: torch.Tensor,
+                          window_size: int = 5, max_iterations: int = 100,
+                          alpha: float = 1.0):
+    """Horn-Schunck with the whole solve in one kernel launch (tpuflow's
+    ``horn_schunck_pallas_resident``); returns (u, v).
+
+    Gradients by :func:`tpuflow_torch.solvers.hs_gradients`, then zero
+    (u, v) and ``max_iterations`` sweeps dividing by alpha^2 + gx^2 + gy^2
+    every sweep. CPU tensors take :func:`horn_schunck_resident_plain`;
+    CUDA tensors (contiguous float32) one cooperative launch of
+    ``csrc/hs_resident.cu``, or raise.
+    """
+    return _resident(prev, next, window_size, max_iterations, alpha, False)
+
+
+def horn_schunck_resident2(prev: torch.Tensor, next: torch.Tensor,
+                           window_size: int = 5, max_iterations: int = 100,
+                           alpha: float = 1.0):
+    """:func:`horn_schunck_resident` with the reciprocal of the
+    denominator computed once (tpuflow's ``horn_schunck_pallas_resident2``):
+    the same sweeps as :func:`horn_schunck_fused`. CPU tensors take
+    :func:`horn_schunck_resident2_plain`."""
+    return _resident(prev, next, window_size, max_iterations, alpha, True)

@@ -16,6 +16,10 @@ tensors on the fields' device, so a launch never waits for the host.
 Energy checks and early stopping stay outside
 (:mod:`tpuflow_torch.solvers.black_anandan_fast`).
 
+:func:`irls_tile_sweeps` is ``irls_tile_sweeps``, the tile body of the
+sharded IRLS level (:mod:`tpuflow_torch.dist.solvers`): the same sweeps
+on one halo'd tile at a frame offset, through the same CUDA source.
+
 :func:`irls_gated_sweeps` is the flagship refinement's sweep
 (``irls_gated_sweep_pallas``, OpticalFlow_BlockMatching.cpp:465-514): the
 same update with each neighbour term gated by same-region labels and
@@ -33,8 +37,9 @@ from tpuflow_torch.core import borders as bd
 from tpuflow_torch.kernels import _build
 
 # Launches of the CUDA kernels in this process (never the plain versions):
-# irls_sweeps and irls_gated_sweeps.
+# irls_sweeps, irls_tile_sweeps and irls_gated_sweeps.
 LAUNCHES = 0
+LAUNCHES_TILE = 0
 LAUNCHES_GATED = 0
 # Core tile of one block and its thread count. The shared tile is the core
 # plus a fuse-pixel halo on each side: 7 float fields, so
@@ -54,6 +59,10 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4
         + [ctypes.c_int, ctypes.c_void_p])
     lib.irls_sweeps_launch.restype = ctypes.c_int
+    lib.irls_tile_launch.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float] * 4
+        + [ctypes.c_int, ctypes.c_void_p])
+    lib.irls_tile_launch.restype = ctypes.c_int
     lib.irls_sweeps_error_string.argtypes = [ctypes.c_int]
     lib.irls_sweeps_error_string.restype = ctypes.c_char_p
     return lib
@@ -63,12 +72,15 @@ def smem_bytes(fuse: int) -> int:
     return 7 * 4 * (TILE_H + 2 * fuse) * (TILE_W + 2 * fuse)
 
 
-def _neighbor_masks(h: int, w: int, device) -> list[torch.Tensor]:
-    """For each of :data:`NEIGHBORS`, where that neighbour is in the frame."""
-    ys = torch.arange(h, device=device)[:, None]
-    xs = torch.arange(w, device=device)[None, :]
-    return [(ys + dy >= 0) & (ys + dy < h) & (xs + dx >= 0) & (xs + dx < w)
-            for dx, dy in NEIGHBORS]
+def neighbor_masks(row0: int, col0: int, hh: int, hw: int, img_h: int,
+                   img_w: int, device) -> list[torch.Tensor]:
+    """For each of :data:`NEIGHBORS`, where that neighbour of the cells of
+    an (hh, hw) tile whose (0, 0) sits at frame coordinates (row0, col0)
+    is inside the (img_h, img_w) frame (tpuflow's ``_nb_masks``)."""
+    ys = torch.arange(hh, device=device)[:, None] + row0
+    xs = torch.arange(hw, device=device)[None, :] + col0
+    return [(ys + dy >= 0) & (ys + dy < img_h) & (xs + dx >= 0)
+            & (xs + dx < img_w) for dx, dy in NEIGHBORS]
 
 
 def irls_sweeps_plain(u, v, gx, gy, it, sup_x, sup_y, fuse: int,
@@ -78,7 +90,7 @@ def irls_sweeps_plain(u, v, gx, gy, it, sup_x, sup_y, fuse: int,
     from tpuflow_torch.solvers.mestimators import geman_mcclure_psi as psi
 
     h, w = u.shape
-    masks = _neighbor_masks(h, w, u.device)
+    masks = neighbor_masks(0, 0, h, w, h, w, u.device)
     for _ in range(fuse):
         psi_d = psi(gx * u + gy * v + it, sigma_d)
         up = bd.pad2d(u, 1, bd.ZERO)
@@ -108,15 +120,10 @@ def irls_sweeps(u, v, gx, gy, it, sup_x, sup_y, fuse: int,
     _build.check_fields("irls_sweeps", u, v, gx, gy, it)
     if fuse < 1:
         raise ValueError(f"irls_sweeps: need fuse >= 1, got {fuse}")
-    for s in (sup_x, sup_y):
-        if s.numel() != 1 or s.device != u.device:
-            raise ValueError("irls_sweeps: sup_x/sup_y must be one-element "
-                             f"tensors on {u.device}")
+    _check_sups("irls_sweeps", u, sup_x, sup_y)
     if u.device.type == "cpu":
         return irls_sweeps_plain(u, v, gx, gy, it, sup_x, sup_y, fuse,
                                  lambda_d, lambda_s, sigma_d, sigma_s)
-    if sup_x.dtype != torch.float32 or sup_y.dtype != torch.float32:
-        raise TypeError("irls_sweeps: the CUDA kernel takes float32 sup_x/sup_y")
     smem = smem_bytes(fuse)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(f"irls_sweeps: fuse={fuse} needs {smem} B of shared "
@@ -134,6 +141,100 @@ def irls_sweeps(u, v, gx, gy, it, sup_x, sup_y, fuse: int,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, "irls_sweeps", rc)
     LAUNCHES += 1
+    return u_out, v_out
+
+
+def _check_sups(name, u, sup_x, sup_y):
+    for s in (sup_x, sup_y):
+        if s.numel() != 1 or s.device != u.device:
+            raise ValueError(f"{name}: sup_x/sup_y must be one-element "
+                             f"tensors on {u.device}")
+    if u.device.type != "cpu" and (sup_x.dtype != torch.float32
+                                   or sup_y.dtype != torch.float32):
+        raise TypeError(f"{name}: the CUDA kernel takes float32 sup_x/sup_y")
+
+
+def irls_tile_sweeps_plain(u_p, v_p, gx_p, gy_p, it_p, sup_x, sup_y,
+                           row0: int, col0: int, img_h: int, img_w: int,
+                           fuse: int, lambda_d: float, lambda_s: float,
+                           sigma_d: float, sigma_s: float):
+    """``fuse`` IRLS sweeps on one halo'd tile in plain PyTorch: tpuflow's
+    ``_irls_sweeps`` with neighbour masks from frame coordinates
+    (``_nb_masks``), valid regions shrinking by one pixel per sweep, u and
+    v not re-zeroed. Returns the (hh - 2*fuse, hw - 2*fuse) core."""
+    from tpuflow_torch.solvers.mestimators import geman_mcclure_psi as psi
+
+    hh, hw = u_p.shape
+    masks = neighbor_masks(row0, col0, hh, hw, img_h, img_w, u_p.device)
+    u, v = u_p, v_p
+    for t in range(fuse):
+        sh, sw = hh - 2 * t, hw - 2 * t
+        uc = u[1 : sh - 1, 1 : sw - 1]
+        vc = v[1 : sh - 1, 1 : sw - 1]
+        o = t + 1
+        core = (slice(o, o + sh - 2), slice(o, o + sw - 2))
+        gxc, gyc = gx_p[core], gy_p[core]
+        psi_d = psi(gxc * uc + gyc * vc + it_p[core], sigma_d)
+        nx = torch.zeros_like(uc)
+        ny = torch.zeros_like(vc)
+        for (dx, dy), m in zip(NEIGHBORS, masks):
+            un = u[1 + dy : sh - 1 + dy, 1 + dx : sw - 1 + dx]
+            vn = v[1 + dy : sh - 1 + dy, 1 + dx : sw - 1 + dx]
+            nx = nx + torch.where(m[core], psi(uc - un, sigma_s), 0.0)
+            ny = ny + torch.where(m[core], psi(vc - vn, sigma_s), 0.0)
+        u, v = (uc - (lambda_d * gxc * psi_d + lambda_s * nx) / sup_x,
+                vc - (lambda_d * gyc * psi_d + lambda_s * ny) / sup_y)
+    return u, v
+
+
+def irls_tile_sweeps(u_p, v_p, gx_p, gy_p, it_p, sup_x, sup_y, row0: int,
+                     col0: int, img_h: int, img_w: int, fuse: int,
+                     lambda_d: float = 5.0, lambda_s: float = 1.0,
+                     sigma_d: float = 0.1, sigma_s: float = 0.1):
+    """``fuse`` IRLS sweeps on one halo'd tile; returns its (th, tw) core.
+
+    The five fields are (th + 2*fuse, tw + 2*fuse) with halos already
+    exchanged; (row0, col0) are the frame coordinates of their (0, 0) in an
+    (img_h, img_w) frame, and the core must lie in the frame (as a mesh
+    tile does). CPU tensors take :func:`irls_tile_sweeps_plain`; CUDA
+    tensors (contiguous float32, one-element float32 ``sup_x``/``sup_y``
+    on the same device) one launch of the tile kernel of
+    ``csrc/irls_stencil.cu``, or raise.
+    """
+    global LAUNCHES_TILE
+    _build.check_fields("irls_tile_sweeps", u_p, v_p, gx_p, gy_p, it_p)
+    if fuse < 1:
+        raise ValueError(f"irls_tile_sweeps: need fuse >= 1, got {fuse}")
+    _check_sups("irls_tile_sweeps", u_p, sup_x, sup_y)
+    hh, hw = u_p.shape
+    th, tw = hh - 2 * fuse, hw - 2 * fuse
+    if th < 1 or tw < 1:
+        raise ValueError(f"irls_tile_sweeps: a {hh}x{hw} tile has no core "
+                         f"inside a {fuse}-pixel halo")
+    if (row0 + fuse < 0 or col0 + fuse < 0 or row0 + fuse + th > img_h
+            or col0 + fuse + tw > img_w):
+        raise ValueError(f"irls_tile_sweeps: the core at ({row0 + fuse}, "
+                         f"{col0 + fuse}) leaves the {img_h}x{img_w} frame")
+    if u_p.device.type == "cpu":
+        return irls_tile_sweeps_plain(u_p, v_p, gx_p, gy_p, it_p, sup_x,
+                                      sup_y, row0, col0, img_h, img_w, fuse,
+                                      lambda_d, lambda_s, sigma_d, sigma_s)
+    smem = smem_bytes(fuse)
+    if smem > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"irls_tile_sweeps: fuse={fuse} needs {smem} B of "
+                         f"shared memory per block (> {_build.MAX_SMEM_BYTES})")
+    lib = _lib()
+    u_out = u_p.new_empty((th, tw))
+    v_out = torch.empty_like(u_out)
+    with torch.cuda.device(u_p.device):
+        rc = lib.irls_tile_launch(
+            u_p.data_ptr(), v_p.data_ptr(), gx_p.data_ptr(), gy_p.data_ptr(),
+            it_p.data_ptr(), sup_x.data_ptr(), sup_y.data_ptr(),
+            u_out.data_ptr(), v_out.data_ptr(), hh, hw, int(row0), int(col0),
+            img_h, img_w, TILE_H, TILE_W, fuse, lambda_d, lambda_s, sigma_d,
+            sigma_s, THREADS, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(lib, "irls_sweeps", rc)
+    LAUNCHES_TILE += 1
     return u_out, v_out
 
 
@@ -195,10 +296,7 @@ def irls_gated_sweeps(u, v, gx, gy, it, labels, sup_x, sup_y, fuse: int,
                          "must match gx on its device")
     if fuse < 1:
         raise ValueError(f"irls_gated_sweeps: need fuse >= 1, got {fuse}")
-    for s in (sup_x, sup_y):
-        if s.numel() != 1 or s.device != u.device:
-            raise ValueError("irls_gated_sweeps: sup_x/sup_y must be "
-                             f"one-element tensors on {u.device}")
+    _check_sups("irls_gated_sweeps", u, sup_x, sup_y)
     if u.device.type == "cpu":
         return irls_gated_sweeps_plain(u, v, gx, gy, it, labels, sup_x,
                                        sup_y, fuse, lambda_d, lambda_s,
