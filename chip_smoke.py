@@ -9,27 +9,29 @@ Phases, each printing one line of its own numbers:
    float32 references.
 2. build   — builds the seven CUDA sources of ``tpuflow_torch/csrc`` (one
    nvcc each, all started together, into ``build/tpuflow_torch``) and
-   reports seconds and ptxas usage.
+   reports seconds and ptxas usage (registers, spills), which the rows of
+   ``hs_sweeps``, ``irls_gated_sweeps`` and ``hs_tile_sweeps`` log beside
+   the blocks per SM that CUDA's occupancy calculator gives their launch.
 3. kernels — each of the eleven kernels against its plain PyTorch version
    on the card, on float32 inputs from a numpy seed, with both versions'
    device times (``cuda_ms(..., device_only=True)``), the least time the
    card could take for the same work (``bound_ms``: the bytes over 3.35
    TB/s or the float32 operations over 67 TFLOP/s, whichever is larger)
    and, for sepconv and poly expansion, one ``F.conv2d`` computing the
-   same function (``library_ms``; the port never calls it): HS 100
-   sweeps at 1080x1920 and IRLS 512 sweeps at 376x1240 (each at its
-   main-path fuse and at a fuse that leaves a remainder) and both at
-   375x1242 (the ragged KITTI size); sepconv at 1080x1920 with 48 and 17
-   taps and at 375x1242 with 64; poly expansion at 1080x1920 with n = 8
-   and 5 and at 375x1242; blur-solve at 1080x1920 with winsize 48 and at
-   375x1242 with 64; the gated IRLS 256 sweeps at 376x1240 and 375x1242,
-   fuse 16 and 15, one and two directions, on the flagship scene's own
-   refine inputs; the mean-shift filter at R = 20 for one iteration at
-   376x1240 and eight on a 96x160 crop; the sharded solvers' tile sweeps
-   on one whole-frame tile at origin (-need, -need) (HS 100 sweeps at
-   2160x3840, fuse 5; IRLS 512 sweeps at 376x1240, fuse 16), each with a
-   zero pad of (u, v) between launches, as a 1x1 mesh's halo exchange
-   gives it, and again on a 2x2 cut at the tiles' frame origins,
+   same function (``library_ms``; the port never calls it): HS 100 sweeps
+   at 1080x1920 and IRLS 512 sweeps at 376x1240 (each at its main-path
+   fuse and at a fuse that leaves a remainder) and both at 375x1242 (the
+   ragged KITTI size), HS also at 3x3 there; sepconv at 1080x1920 with 48
+   and 17 taps and at 375x1242 with 64; poly expansion at 1080x1920 with
+   n = 8 and 5 and at 375x1242; blur-solve at 1080x1920 with winsize 48 and
+   at 375x1242 with 64; the gated IRLS 256 sweeps at 376x1240 and
+   375x1242, fuse 16 and 15, one and two directions, on the flagship
+   scene's own refine inputs; the mean-shift filter at R = 20 for one
+   iteration at 376x1240 and eight on a 96x160 crop; the sharded solvers'
+   tile sweeps on one whole-frame tile at origin (-need, -need) (HS 100
+   sweeps at 2160x3840, fuse 5; IRLS 512 sweeps at 376x1240, fuse 16),
+   each with a zero pad of (u, v) between launches, as a 1x1 mesh's halo
+   exchange gives it, and again on a 2x2 cut at the tiles' frame origins,
    stitched, bitwise equal to hs_sweeps / irls_sweeps on the whole frame;
    the resident HS pair at 1080x1920, 100 sweeps (and 99, which ends in
    the second buffer), resident2 beside ``horn_schunck_fused``.
@@ -282,14 +284,16 @@ def blur_bound(hp, wp, win):
 
 def gated_bound(labels: np.ndarray, sweeps, batch):
     # Per pixel: the data term and psi (10), its norm (4), the two updates
-    # (12); per neighbour in the frame and in the same region (as this
-    # label map has them): the cosine and weight (9; the neighbour's norm
-    # is its own pixel's, already counted), and for each of u and v the
-    # difference, psi, weight and add (9).
+    # (12). Per edge between two pixels in the frame and in the same region
+    # (as this label map has them): the cosine and weight once (9; the
+    # norms are their pixels' own, already counted), and for each of u and
+    # v the difference, psi and weight (8), the add at one end and the
+    # subtraction at the other (2): the term is antisymmetric, so the
+    # function needs it once per edge, not once per direction.
     px = labels.size
-    same = 2 * (int((labels[:, 1:] == labels[:, :-1]).sum())
-                + int((labels[1:] == labels[:-1]).sum()))
-    ops = sweeps * batch * (26 * px + 27 * same)
+    edges = (int((labels[:, 1:] == labels[:, :-1]).sum())
+             + int((labels[1:] == labels[:-1]).sum()))
+    ops = sweeps * batch * (26 * px + 29 * edges)
     return bound(4 * px * (5 * batch + 3), ops)
 
 
@@ -422,6 +426,41 @@ def phase_device() -> str:
     return name
 
 
+# ptxas's report per kernel entry (registers and spill bytes), read by
+# phase_build from each source's build log.
+PTXAS: dict[str, dict] = {}
+
+
+def read_ptxas(report: str) -> dict[str, dict]:
+    """{mangled entry name: {"registers", "spill_stores", "spill_loads"}}
+    from nvcc's ``-Xptxas -v`` output."""
+    usage, entry = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            usage[entry] = {}
+        elif entry and "spill stores" in line:
+            nums = [int(t) for t in line.replace(",", " ").split()
+                    if t.isdigit()]
+            usage[entry]["spill_stores"], usage[entry]["spill_loads"] = \
+                nums[1], nums[2]
+        elif entry and "Used" in line and "registers" in line:
+            words = line.split()
+            usage[entry]["registers"] = int(words[words.index("Used") + 1])
+    return usage
+
+
+def kernel_usage(entry: str, blocks_per_sm: int) -> dict:
+    """The blocks per SM the occupancy calculator gives a kernel's launch,
+    beside ptxas's registers and spills for the entry whose mangled name
+    contains ``entry``."""
+    found = [u for name, u in PTXAS.items() if entry in name]
+    if len(found) != 1:
+        raise AssertionError(f"ptxas report: {len(found)} entries match "
+                             f"{entry!r}")
+    return {"blocks_per_sm": blocks_per_sm, **found[0]}
+
+
 def phase_build() -> None:
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -447,6 +486,7 @@ def phase_build() -> None:
         log("build", kernel=name, seconds=round(sec, 3))
         report = _build.BUILD_DIR / f"{name}.log"
         if report.exists():
+            PTXAS.update(read_ptxas(report.read_text()))
             for line in report.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print("    " + line.strip(), flush=True)
@@ -538,9 +578,19 @@ def phase_kernels(dev) -> dict:
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                **hs_bound(shape, HS_ITERS, HS_WINDOW), "library_ms": None}
         log("kernels", kernel="hs_sweeps", shape=shape, sweeps=HS_ITERS,
-            fuse=hs_fuse, **row)
+            fuse=hs_fuse, **row, **kernel_usage(
+                f"hs_sweeps_kernelILi{HS_WINDOW // 2}E",
+                hs_stencil.blocks_per_sm(False, HS_WINDOW)))
         out.setdefault("hs_sweeps", row)
         torch.cuda.synchronize()
+    # The kernels take any odd window; all but 5x5 with the box radius read
+    # at run time. Once at 3x3, on the ragged size.
+    fields = f32(dev, *hs_fields(RAGGED_SHAPE, 5))
+    err = check_close("hs_sweeps window 3", list(zip(
+        hs_stencil.hs_iterate(*fields, 3, 10, hs_fuse),
+        hs_stencil.hs_sweeps_plain(*fields, 3, 10))), KERNEL_TOL)
+    log("kernels", kernel="hs_sweeps", shape=RAGGED_SHAPE, window=3,
+        sweeps=10, fuse=hs_fuse, max_abs_err=err)
 
     consts = (LAMBDA_D, LAMBDA_S, SIGMA_D_L0, SIGMA_S_L0)
     for shape in (BA_SHAPE, RAGGED_SHAPE):
@@ -669,6 +719,8 @@ def phase_kernels_flagship(dev, out) -> None:
 
     consts = (bm_flow.LAMBDA_D, bm_flow.LAMBDA_S, bm_flow.SIGMA_D_BM,
               bm_flow.SIGMA_S_BM)
+    usage = kernel_usage("irls_gated_kernel",
+                         irls_stencil.blocks_per_sm_gated())
     for shape in (BM_SHAPE, RAGGED_SHAPE):
         frames, cells, gx, gy, its, sup = flagship_refine_inputs(dev, shape)
         labels = torch.from_numpy(cells).to(dev)
@@ -693,7 +745,7 @@ def phase_kernels_flagship(dev, out) -> None:
                            lambda fuse=fuse: run(fuse), plain,
                            gated_bound(cells, GATED_SWEEPS, batch),
                            plain_reps=1, sweeps=GATED_SWEEPS, fuse=fuse,
-                           batch=batch)
+                           batch=batch, **usage)
 
     lab = bm_flow._to_lab(voronoi_frames()[0][1], 255.0)[1].to(dev)
     crop = lab[BM_CROP].contiguous()
@@ -790,7 +842,9 @@ def phase_kernels_dist(dev, out) -> None:
     kernel_row(out, "hs_tile_sweeps", HS4K_SHAPE,
                lambda: hs_run(hs_stencil.hs_tile_sweeps),
                lambda: hs_run(hs_stencil.hs_tile_sweeps_plain),
-               hs_bound(HS4K_SHAPE, HS_ITERS, HS_WINDOW), **what)
+               hs_bound(HS4K_SHAPE, HS_ITERS, HS_WINDOW), **what,
+               **kernel_usage(f"hs_tile_kernelILi{HS_WINDOW // 2}E",
+                              hs_stencil.blocks_per_sm(True, HS_WINDOW)))
     whole = hs_stencil.hs_iterate(u, v, *fixed, HS_WINDOW, HS_ITERS, fuse)
     err = exact("hs_tile_sweeps 2x2 cut vs hs_sweeps",
                 hs_run(hs_stencil.hs_tile_sweeps, cut=True), whole)

@@ -1,0 +1,302 @@
+"""The arithmetic forms the CUDA sweep kernels rely on, on the CPU.
+
+The kernels themselves run only on the card, where chip_smoke.py holds
+them bitwise to their plain versions. These tests check, in float32 and
+bitwise (``torch.equal``), that the reorganised forms the kernels compute
+are the plain versions' arithmetic:
+
+- (a) the region-gated neighbour term of an edge, computed at either end,
+  is the exact negation of the other end's (``csrc/irls_gated.cu``
+  computes each edge once);
+- (b) a test-local edge form of the gated sweep (each edge once, added at
+  one end and subtracted at the other, in the plain neighbour order)
+  equals ``irls_gated_sweeps_plain``;
+- (c) column sums computed once and then summed W along the row, from 0,
+  equal ``_box_sum``, and the HS sweeps built on them equal
+  ``hs_sweeps_plain`` and ``hs_tile_sweeps_plain`` (``csrc/hs_stencil.cu``);
+- (d) the launch geometry: the Python constants match the CUDA sources,
+  the shared memory fits a block, and the blocks per SM the designs intend
+  hold by arithmetic (228 KB per SM, 1 KB reserved per block).
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tpuflow_torch.core import borders as bd
+from tpuflow_torch.kernels import hs_stencil, irls_stencil
+from tpuflow_torch.kernels._build import MAX_SMEM_BYTES
+from tpuflow_torch.solvers import bm_flow
+from tpuflow_torch.solvers.mestimators import geman_mcclure_psi as psi
+
+CSRC = Path(irls_stencil.__file__).resolve().parent.parent / "csrc"
+SIGMA_S = bm_flow.SIGMA_S_BM
+GATED_ARGS = (bm_flow.LAMBDA_D, bm_flow.LAMBDA_S, bm_flow.SIGMA_D_BM,
+              bm_flow.SIGMA_S_BM)
+# Hopper: shared memory per SM and per block, threads per SM.
+SMEM_PER_SM = 228 * 1024
+SMEM_RESERVED_PER_BLOCK = 1024
+THREADS_PER_SM = 2048
+
+
+def _f32(a):
+    return torch.tensor(np.asarray(a), dtype=torch.float32)
+
+
+def _term(u, v, dx, dy):
+    """The plain version's gated neighbour term for neighbour (dx, dy),
+    at every cell, for u and v (``_neighbor_terms`` before the gate)."""
+    norm_c = torch.sqrt(u * u + v * v)
+    un, vn, coeff = bm_flow._coherence(u, v, norm_c, dx, dy)
+    return coeff * psi(u - un, SIGMA_S), coeff * psi(v - vn, SIGMA_S)
+
+
+def _fields(kind, shape, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        u, v = 0.2 * rng.normal(size=shape), 0.2 * rng.normal(size=shape)
+    elif kind == "zero":
+        u, v = np.zeros(shape), np.zeros(shape)
+    elif kind == "denormal":
+        u = rng.normal(size=shape) * 1e-39
+        v = rng.normal(size=shape) * 1e-40
+    else:  # equal vectors
+        u = np.full(shape, 0.3)
+        v = np.full(shape, -0.7)
+    return _f32(u), _f32(v)
+
+
+@pytest.mark.parametrize("kind", ["random", "zero", "denormal", "equal"])
+@pytest.mark.parametrize("edge", ["horizontal", "vertical"])
+def test_edge_term_antisymmetric(edge, kind):
+    """(a) The term at c for q is the exact negation of the term at q for
+    c, in float32."""
+    u, v = _fields(kind, (23, 31), 11)
+    if kind == "denormal":
+        assert 0 < float(u.abs().max()) < torch.finfo(torch.float32).tiny
+    if edge == "horizontal":
+        near, far = _term(u, v, 1, 0), _term(u, v, -1, 0)
+        cut_near, cut_far = np.s_[:, :-1], np.s_[:, 1:]
+    else:
+        near, far = _term(u, v, 0, 1), _term(u, v, 0, -1)
+        cut_near, cut_far = np.s_[:-1, :], np.s_[1:, :]
+    for a, b in zip(near, far):
+        assert torch.equal(b[cut_far], -a[cut_near])
+    if kind == "random":
+        assert float(near[0][cut_near].abs().max()) > 0
+
+
+def _edge_form_sweeps(u, v, gx, gy, it, labels, sup_x, sup_y, fuse,
+                      lambda_d, lambda_s, sigma_d, sigma_s):
+    """The gated sweeps as csrc/irls_gated.cu computes them: each cell's
+    norm once, each right and down edge once, then per cell the left edge
+    subtracted, the right edge added, the upper edge subtracted, the down
+    edge added (the plain order), each only where its gate is on."""
+    left, right, up, down = (g.bool() for g in bm_flow._region_gates(
+        labels, u.dtype))
+    for _ in range(fuse):
+        norm = torch.sqrt(u * u + v * v)
+        edges = {}
+        for name, (dx, dy) in (("right", (1, 0)), ("down", (0, 1))):
+            un, vn, m = bm_flow._coherence(u, v, norm, dx, dy)
+            edges[name] = (m * psi(u - un, sigma_s), m * psi(v - vn, sigma_s))
+        psi_d = psi(gx * u + gy * v + it, sigma_d)
+        sums = []
+        for k in range(2):
+            s = torch.zeros_like(u)
+            from_left = bm_flow._shift_field(edges["right"][k], -1, 0)
+            from_up = bm_flow._shift_field(edges["down"][k], 0, -1)
+            s = torch.where(left, s - from_left, s)
+            s = torch.where(right, s + edges["right"][k], s)
+            s = torch.where(up, s - from_up, s)
+            s = torch.where(down, s + edges["down"][k], s)
+            sums.append(s)
+        u, v = (u - (lambda_d * gx * psi_d + lambda_s * sums[0]) / sup_x,
+                v - (lambda_d * gy * psi_d + lambda_s * sums[1]) / sup_y)
+    return u, v
+
+
+def _small_regions(shape, seed):
+    """Many small regions: random ids on 3x4 blocks, cut by a diagonal."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    ids = rng.integers(0, 5, (h // 3 + 1, w // 4 + 1))
+    lab = np.repeat(np.repeat(ids, 3, 0), 4, 1)[:h, :w]
+    yy, xx = np.mgrid[0:h, 0:w]
+    return torch.from_numpy((lab + 7 * ((yy + xx) % 11 < 2)).astype(np.int32))
+
+
+@pytest.mark.parametrize("fuse", [1, 16])
+@pytest.mark.parametrize("shape", [(37, 53), (64, 96)])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_edge_form_equals_gated_plain(batch, shape, fuse):
+    """(b) The edge form equals irls_gated_sweeps_plain bitwise."""
+    rng = np.random.default_rng(batch * 100 + shape[0] + fuse)
+    lead = (batch,) if batch == 2 else ()
+    u, v = (_f32(0.3 * rng.normal(size=lead + shape)) for _ in range(2))
+    it = _f32(0.05 * rng.normal(size=lead + shape))
+    gx, gy = (_f32(0.1 * rng.normal(size=shape)) for _ in range(2))
+    labels = _small_regions(shape, fuse)
+    assert len(torch.unique(labels)) > 8
+    sups = (_f32([3.7]), _f32([4.1]))
+    want = irls_stencil.irls_gated_sweeps_plain(u, v, gx, gy, it, labels,
+                                                *sups, fuse, *GATED_ARGS)
+    got = _edge_form_sweeps(u, v, gx, gy, it, labels, *sups, fuse,
+                            *GATED_ARGS)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not torch.equal(want[0], u)
+
+
+def _colsum_box(a: torch.Tensor, window: int) -> torch.Tensor:
+    """The box sum of a zero-padded field as csrc/hs_stencil.cu takes it:
+    each column sum once (top to bottom), then W of them along the row,
+    left to right, from 0."""
+    r = window // 2
+    p = bd.pad2d(a, r, bd.ZERO)
+    h, w = a.shape
+    cols = p[0:h, :]
+    for d in range(1, window):
+        cols = cols + p[d : d + h, :]
+    out = torch.zeros_like(a)
+    for d in range(window):
+        out = out + cols[:, d : d + w]
+    return out
+
+
+@pytest.mark.parametrize("window", [3, 5, 7])
+def test_column_sum_form_equals_box_sum(window):
+    """(c) Once-computed column sums, then W along the row, equal _box_sum
+    bitwise."""
+    a = _f32(np.random.default_rng(window).normal(size=(29, 41)))
+    assert torch.equal(_colsum_box(a, window), hs_stencil._box_sum(a, window))
+
+
+def _colsum_hs_sweeps(u, v, gx, gy, gt, inv, window, fuse):
+    inv_area = 1.0 / (window * window)
+    for _ in range(fuse):
+        ub = _colsum_box(u, window) * inv_area
+        vb = _colsum_box(v, window) * inv_area
+        upd = (gx * ub + gy * vb + gt) * inv
+        u, v = ub - gx * upd, vb - gy * upd
+    return u, v
+
+
+def _colsum_tile_sweeps(u_p, v_p, gx, gy, gt, inv, row0, col0, img_h,
+                        img_w, window, fuse):
+    """The tile kernel's block on one halo'd tile: the valid region shrinks
+    by r per sweep, column sums on its rows (and r more columns each side),
+    then the row sums; cells outside the frame held at 0."""
+    hh, hw = u_p.shape
+    r = window // 2
+    inv_area = 1.0 / (window * window)
+    mask = hs_stencil._inside_mask(row0, col0, hh, hw, img_h, img_w, u_p)
+    u, v = u_p * mask, v_p * mask
+    for t in range(1, fuse + 1):
+        lo = t * r
+        rows, cols = slice(lo, hh - lo), slice(lo - r, hw - lo + r)
+        new = []
+        for f in (u, v):
+            cs = f[lo - r : hh - lo - r, cols]
+            for d in range(1, window):
+                cs = cs + f[lo - r + d : hh - lo - r + d, cols]
+            s = torch.zeros((hh - 2 * lo, hw - 2 * lo))
+            for d in range(window):
+                s = s + cs[:, d : d + hw - 2 * lo]
+            new.append(s * inv_area)
+        ub, vb = new
+        core = (rows, slice(lo, hw - lo))
+        upd = (gx[core] * ub + gy[core] * vb + gt[core]) * inv[core]
+        u, v = u.clone(), v.clone()
+        u[core] = (ub - gx[core] * upd) * mask[core]
+        v[core] = (vb - gy[core] * upd) * mask[core]
+    need = fuse * r
+    return u[need : hh - need, need : hw - need], \
+        v[need : hh - need, need : hw - need]
+
+
+def _hs_fields(shape, seed):
+    rng = np.random.default_rng(seed)
+    gx, gy = rng.normal(size=shape), rng.normal(size=shape)
+    u, v = 0.5 * rng.normal(size=shape), 0.5 * rng.normal(size=shape)
+    return [_f32(a) for a in (u, v, gx, gy, 0.3 * rng.normal(size=shape),
+                              1.0 / (1.0 + gx * gx + gy * gy))]
+
+
+@pytest.mark.parametrize("window", [3, 5])
+@pytest.mark.parametrize("kernel", ["sweeps", "tile"])
+def test_column_sum_hs_equals_plain(kernel, window):
+    """(c) The HS sweeps on column sums equal hs_sweeps_plain and
+    hs_tile_sweeps_plain bitwise (the tile at a frame corner, so the
+    inside mask and the ragged frame edge both act)."""
+    fuse = 3
+    if kernel == "sweeps":
+        fields = _hs_fields((27, 45), window)
+        want = hs_stencil.hs_sweeps_plain(*fields, window, fuse)
+        got = _colsum_hs_sweeps(*fields, window, fuse)
+    else:
+        need = fuse * (window // 2)
+        fields = _hs_fields((20 + 2 * need, 26 + 2 * need), window + 1)
+        args = (-need, 30 - need, 18, 50, window, fuse)
+        want = hs_stencil.hs_tile_sweeps_plain(*fields, *args)
+        got = _colsum_tile_sweeps(*fields, *args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _cu_constants(name: str) -> dict:
+    src = (CSRC / f"{name}.cu").read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", src)}
+
+
+def test_python_geometry_matches_cuda_sources():
+    """(d) The wrappers' staged tiles and threads are the sources'."""
+    g = _cu_constants("irls_gated")
+    assert (g["SH"], 32 * g["CX"]) == irls_stencil.GATED_STAGE
+    assert 32 * g["SH"] // g["CY"] == irls_stencil.GATED_THREADS
+    h = _cu_constants("hs_stencil")
+    assert (h["SH"], 32 * h["CX"]) == hs_stencil.STAGE
+    assert 32 * h["SH"] // h["CY"] == hs_stencil.THREADS
+    assert h["BLOCKS_PER_SM"] == hs_stencil.BLOCKS_PER_SM
+
+
+def _blocks_by_arithmetic(smem: int, threads: int) -> int:
+    return min(SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK),
+               THREADS_PER_SM // threads)
+
+
+@pytest.mark.parametrize("fuse", range(1, 17))
+def test_gated_geometry(fuse):
+    """(d) Every fuse 1-16 leaves a core and fits one block's shared
+    memory; one block of the gated kernel fits an SM."""
+    core = irls_stencil.gated_core(fuse)
+    assert min(core) >= 1
+    smem = irls_stencil.smem_bytes_gated(fuse)
+    assert smem <= MAX_SMEM_BYTES
+    assert _blocks_by_arithmetic(smem, irls_stencil.GATED_THREADS) >= 1
+
+
+@pytest.mark.parametrize("window", [3, 5, 7])
+def test_hs_tile_geometry(window):
+    """(d) tile_for accepts exactly the fuses that leave a core; each of
+    them fits a block's shared memory, and two blocks fit an SM."""
+    r = window // 2
+    accepted = []
+    for fuse in range(1, 40):
+        try:
+            core = hs_stencil.tile_for(window, fuse)
+        except ValueError:
+            assert min(hs_stencil.STAGE) - 2 * fuse * r < 1
+            continue
+        accepted.append(fuse)
+        assert core == tuple(s - 2 * fuse * r for s in hs_stencil.STAGE)
+        smem = hs_stencil.smem_bytes(window, fuse)
+        assert smem <= MAX_SMEM_BYTES
+        assert _blocks_by_arithmetic(smem, hs_stencil.THREADS) \
+            >= hs_stencil.BLOCKS_PER_SM
+    assert accepted == list(range(1, accepted[-1] + 1))
+    assert 5 in accepted and (window > 5 or 10 in accepted)

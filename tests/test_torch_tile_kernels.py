@@ -190,7 +190,12 @@ def test_tile_wrappers_reject_bad_calls():
 
 @pytest.mark.parametrize("window,fuse", [(5, 5), (5, 10), (3, 16)])
 def test_tile_kernel_block_fits_shared_memory(window, fuse):
-    """Deep fuses (the weak-scaling row's 10) get a smaller block tile."""
-    tile = hs_stencil.tile_for(window, fuse)
-    assert hs_stencil.smem_bytes(window, fuse, tile) <= MAX_SMEM_BYTES
+    """Deep fuses (the weak-scaling row's 10) still leave a core in the
+    staged tile, whose shared memory fits one block."""
+    core = hs_stencil.tile_for(window, fuse)
+    need = fuse * (window // 2)
+    assert core == (hs_stencil.STAGE[0] - 2 * need,
+                    hs_stencil.STAGE[1] - 2 * need)
+    assert min(core) >= 1
+    assert hs_stencil.smem_bytes(window, fuse) <= MAX_SMEM_BYTES
     assert irls_stencil.smem_bytes(16) <= MAX_SMEM_BYTES

@@ -13,136 +13,233 @@
 // where cos = (u.u_n)/max(|u||u_n|, 1e-30), or 1 where |u||u_n| is 0, and
 // psi(x, s) = 2xs / (s + x^2)^2 (the reference's Geman-McClure).
 //
-// What bounds it on the H100: the arithmetic. Per pixel and sweep it is
-// ~120 flops, five square roots and ten divisions, against 28 bytes of
-// device traffic that a one-sweep kernel would move; fused, the traffic
-// drops by `fuse` and the sqrt/division throughput sets the time. As in
-// the TPU kernel, a block stages its 32x32 tile plus a fuse-pixel halo of
-// u, v, gx, gy, it and the labels in shared memory once (8 fields of
-// 64^2 words at fuse 16: 128 KB), runs `fuse` sweeps there with
-// double-buffered u/v and a valid region that shrinks by one pixel per
-// sweep, and writes back only its core. Out-of-frame halo cells carry
-// label -1, which matches no region, so the gate needs no bounds test.
-// blockIdx.z walks the B reference directions: gx, gy and the labels are
-// shared, it, u and v are per direction, so the bidirectional refine is
-// one launch per block of sweeps.
+// What bounds it on the H100: the arithmetic, and in it the IEEE square
+// roots and divisions (the build keeps them exact and contracts no FMA),
+// each a multi-instruction sequence with a branch to its slow path, so
+// the dependent chains of one cell leave the SM waiting unless other warps
+// fill in. Device traffic is 28 bytes per pixel and launch, `fuse` sweeps
+// apart.
 //
-// sup_x/sup_y are read from device memory (no host sync to launch). The
-// build disables FMA contraction and the terms are summed in the plain
-// version's order. A gated-off neighbour adds +-0 in the plain version,
-// which leaves the sums unchanged, so skipping it here is bitwise the same.
+// The design computes each edge once. The neighbour term of an edge is
+// antisymmetric to the last bit: from either end the product of the norms
+// and the dot product are the same products summed in the same order, the
+// difference is negated exactly, psi(-x) = -psi(x) exactly (every step
+// rounds symmetrically), and so is the weight times it. So per sweep
+//
+//   1. an edge pass: each cell's right and down edge, where both ends are
+//      in the frame and in one region, as (weight * psi(du), weight *
+//      psi(dv)) -- one cosine and two psi divisions per edge, the norms of
+//      the cell and its two neighbours taken where they are used;
+//   2. an update pass: each cell adds -(left cell's right edge), its right
+//      edge, -(upper cell's down edge), its down edge -- the plain
+//      version's neighbour order (-1,0), (1,0), (0,-1), (0,1) -- then
+//      applies the two divisions by sup.
+//
+// Per pixel and sweep that is 3 square roots and 9 divisions, against the
+// direct form's 5 and 15. A gated-off neighbour adds +-0 in the plain
+// version, which leaves the sums unchanged (a sum that starts at +0 is
+// never -0), so skipping it is bitwise the same; for the same reason the
+// sign of a zero edge term never shows.
+//
+// A block stages an SH x SW tile (its core plus a fuse-pixel halo) and
+// runs `fuse` sweeps on it, the valid region shrinking by one pixel per
+// sweep; it writes back only the core. Thread (tx, ty) of a (32, SH/CY)
+// block owns the cells of rows ty*CY .. ty*CY+CY-1 at columns tx + 32*i,
+// i < CX, for the whole launch, and keeps their gate bits (the region
+// test done once, at staging) in a register. Shared memory holds u, v and
+// the four edge terms, 6 words per cell; u and v update in place, since
+// the update pass reads only its own cell of them. gx, gy and it are read
+// in the update pass through the read-only cache: held in registers they
+// spilled. The 72x128 tile is the tallest whose 6 fields fit one block:
+// at fuse 16 its 40x96 core covers a 376x1240 frame in 130 blocks, one
+// wave of the 132 SMs per reference direction (a norm field would cost a
+// 64-row tile and three waves for two directions). blockIdx.z walks the B
+// reference directions: gx, gy and the labels are shared, it, u and v are
+// per direction.
+//
+// sup_x/sup_y are read from device memory (no host sync to launch).
 
 #include <cuda_runtime.h>
 
 namespace {
+
+// The staged tile: SH rows of SW = 32*CX columns, CY rows per thread; one
+// block per SM.
+constexpr int SH = 72;
+constexpr int CX = 4;
+constexpr int CY = 3;
+constexpr int SW = 32 * CX;
+constexpr int THREADS = 32 * (SH / CY);
+constexpr size_t SMEM = 6 * sizeof(float) * SH * SW;
+
+// Gate bits of a cell: right, down, left and up neighbour in the frame and
+// in the cell's region; the cell itself in the frame.
+constexpr unsigned RIGHT = 1, DOWN = 2, LEFT = 4, UP = 8, INSIDE = 16;
+constexpr int GATE_BITS = 5;
 
 __device__ __forceinline__ float psi_gm(float x, float sigma) {
   const float d = sigma + x * x;
   return 2.0f * x * sigma / (d * d);
 }
 
-__global__ void irls_gated_kernel(
+// The edge term from cell c to neighbour q, for u and v.
+__device__ __forceinline__ void edge_term(float uc, float vc, float nc,
+                                          float uq, float vq, float nq,
+                                          float sigma_s, float* eu,
+                                          float* ev) {
+  const float prod = nc * nq;
+  const float cosang =
+      prod > 0.f ? (uc * uq + vc * vq) / fmaxf(prod, 1e-30f) : 1.0f;
+  const float m = 0.5f * (1.0f + cosang);
+  *eu = m * psi_gm(uc - uq, sigma_s);
+  *ev = m * psi_gm(vc - vq, sigma_s);
+}
+
+__global__ void __launch_bounds__(THREADS, 1) irls_gated_kernel(
     const float* __restrict__ u_in, const float* __restrict__ v_in,
     const float* __restrict__ gx, const float* __restrict__ gy,
     const float* __restrict__ it, const int* __restrict__ labels,
     const float* __restrict__ sup_x, const float* __restrict__ sup_y,
     float* __restrict__ u_out, float* __restrict__ v_out, int h, int w,
-    int tile_h, int tile_w, int fuse, float lambda_d, float lambda_s,
-    float sigma_d, float sigma_s) {
+    int fuse, float lambda_d, float lambda_s, float sigma_d, float sigma_s) {
   extern __shared__ float smem[];
-  const int sh = tile_h + 2 * fuse;
-  const int sw = tile_w + 2 * fuse;
-  const int n = sh * sw;
-  float* u_a = smem;
-  float* v_a = u_a + n;
-  float* u_b = v_a + n;
-  float* v_b = u_b + n;
-  float* s_gx = v_b + n;
-  float* s_gy = s_gx + n;
-  float* s_it = s_gy + n;
-  int* s_lab = reinterpret_cast<int*>(s_it + n);
+  constexpr int N = SH * SW;
+  float* s_u = smem;
+  float* s_v = s_u + N;
+  float* s_ru = s_v + N;  // right edge, u and v
+  float* s_rv = s_ru + N;
+  float* s_du = s_rv + N;  // down edge, u and v
+  float* s_dv = s_du + N;
+  const int tx = threadIdx.x;
+  const int y0 = threadIdx.y * CY;
   const float sx = *sup_x;
   const float sy = *sup_y;
-  const size_t plane = (size_t)h * w;
-  const size_t batch = blockIdx.z * plane;
-  // Frame coordinates of the shared tile's (0, 0).
-  const int row0 = blockIdx.y * tile_h - fuse;
-  const int col0 = blockIdx.x * tile_w - fuse;
+  const size_t batch = blockIdx.z * (size_t)h * w;
+  // Frame coordinates of the staged tile's (0, 0).
+  const int row0 = blockIdx.y * (SH - 2 * fuse) - fuse;
+  const int col0 = blockIdx.x * (SW - 2 * fuse) - fuse;
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int y = row0 + i / sw;
-    const int x = col0 + i % sw;
-    if (y >= 0 && y < h && x >= 0 && x < w) {
-      const size_t g = (size_t)y * w + x;
-      u_a[i] = u_in[batch + g];
-      v_a[i] = v_in[batch + g];
-      s_gx[i] = gx[g];
-      s_gy[i] = gy[g];
-      s_it[i] = it[batch + g];
-      s_lab[i] = labels[g];
-    } else {
-      u_a[i] = 0.f;
-      v_a[i] = 0.f;
-      s_lab[i] = -1;
+  unsigned gate[CY];
+#pragma unroll
+  for (int j = 0; j < CY; ++j) {
+    gate[j] = 0;
+#pragma unroll
+    for (int i = 0; i < CX; ++i) {
+      const int c = (y0 + j) * SW + tx + 32 * i;
+      const int y = row0 + y0 + j;
+      const int x = col0 + tx + 32 * i;
+      float u = 0.f, v = 0.f;
+      unsigned bits = 0;
+      if (y >= 0 && y < h && x >= 0 && x < w) {
+        const size_t g = (size_t)y * w + x;
+        u = u_in[batch + g];
+        v = v_in[batch + g];
+        const int lc = labels[g];
+        bits = INSIDE;
+        if (x + 1 < w && labels[g + 1] == lc) bits |= RIGHT;
+        if (y + 1 < h && labels[g + w] == lc) bits |= DOWN;
+        if (x > 0 && labels[g - 1] == lc) bits |= LEFT;
+        if (y > 0 && labels[g - w] == lc) bits |= UP;
+      }
+      s_u[c] = u;
+      s_v[c] = v;
+      gate[j] |= bits << (GATE_BITS * i);
     }
   }
   __syncthreads();
 
-  const int nbr[4] = {-1, 1, -sw, sw};  // (-1, 0), (1, 0), (0, -1), (0, 1)
   for (int t = 1; t <= fuse; ++t) {
     // Sweep t is valid on [t, size - t): it reads the ring that sweep t-1
-    // left valid.
-    const int nh = sh - 2 * t;
-    const int nw = sw - 2 * t;
-    for (int i = threadIdx.x; i < nh * nw; i += blockDim.x) {
-      const int ly = t + i / nw;
-      const int lx = t + i % nw;
-      const int y = row0 + ly;
-      const int x = col0 + lx;
-      if (y < 0 || y >= h || x < 0 || x >= w) continue;
-      const int c = ly * sw + lx;
-      const float uc = u_a[c];
-      const float vc = v_a[c];
-      const float psi_d = psi_gm(s_gx[c] * uc + s_gy[c] * vc + s_it[c],
-                                 sigma_d);
-      const float norm_c = sqrtf(uc * uc + vc * vc);
-      const int lc = s_lab[c];
-      float nx = 0.f;
-      float ny = 0.f;
+    // left valid. The edge pass covers the edges those cells touch.
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int q = c + nbr[k];
-        if (s_lab[q] != lc) continue;
-        const float un = u_a[q];
-        const float vn = v_a[q];
-        const float prod = norm_c * sqrtf(un * un + vn * vn);
-        const float cosang =
-            prod > 0.f ? (uc * un + vc * vn) / fmaxf(prod, 1e-30f) : 1.0f;
-        const float m = 0.5f * (1.0f + cosang);
-        nx = nx + m * psi_gm(uc - un, sigma_s);
-        ny = ny + m * psi_gm(vc - vn, sigma_s);
+    for (int j = 0; j < CY; ++j) {
+      const int y = y0 + j;
+      if (y < t - 1 || y >= SH - t) continue;
+#pragma unroll
+      for (int i = 0; i < CX; ++i) {
+        const int x = tx + 32 * i;
+        const unsigned bits = gate[j] >> (GATE_BITS * i);
+        const bool right = (bits & RIGHT) && y >= t && x >= t - 1 &&
+                           x < SW - t;
+        const bool down = (bits & DOWN) && x >= t && x < SW - t;
+        if (!right && !down) continue;
+        const int c = y * SW + x;
+        const float uc = s_u[c];
+        const float vc = s_v[c];
+        const float nc = sqrtf(uc * uc + vc * vc);
+        if (right) {
+          const float uq = s_u[c + 1], vq = s_v[c + 1];
+          edge_term(uc, vc, nc, uq, vq, sqrtf(uq * uq + vq * vq), sigma_s,
+                    &s_ru[c], &s_rv[c]);
+        }
+        if (down) {
+          const float uq = s_u[c + SW], vq = s_v[c + SW];
+          edge_term(uc, vc, nc, uq, vq, sqrtf(uq * uq + vq * vq), sigma_s,
+                    &s_du[c], &s_dv[c]);
+        }
       }
-      u_b[c] = uc - (lambda_d * s_gx[c] * psi_d + lambda_s * nx) / sx;
-      v_b[c] = vc - (lambda_d * s_gy[c] * psi_d + lambda_s * ny) / sy;
     }
     __syncthreads();
-    float* swap = u_a;
-    u_a = u_b;
-    u_b = swap;
-    swap = v_a;
-    v_a = v_b;
-    v_b = swap;
+
+#pragma unroll
+    for (int j = 0; j < CY; ++j) {
+      const int y = y0 + j;
+      if (y < t || y >= SH - t) continue;
+#pragma unroll
+      for (int i = 0; i < CX; ++i) {
+        const int x = tx + 32 * i;
+        const unsigned bits = gate[j] >> (GATE_BITS * i);
+        if (!(bits & INSIDE) || x < t || x >= SW - t) continue;
+        const int c = y * SW + x;
+        const size_t g = (size_t)(row0 + y) * w + col0 + x;
+        const float cgx = __ldg(gx + g);
+        const float cgy = __ldg(gy + g);
+        const float uc = s_u[c];
+        const float vc = s_v[c];
+        const float psi_d =
+            psi_gm(cgx * uc + cgy * vc + __ldg(it + batch + g), sigma_d);
+        float nx = 0.f;
+        float ny = 0.f;
+        if (bits & LEFT) {
+          nx = nx + -s_ru[c - 1];
+          ny = ny + -s_rv[c - 1];
+        }
+        if (bits & RIGHT) {
+          nx = nx + s_ru[c];
+          ny = ny + s_rv[c];
+        }
+        if (bits & UP) {
+          nx = nx + -s_du[c - SW];
+          ny = ny + -s_dv[c - SW];
+        }
+        if (bits & DOWN) {
+          nx = nx + s_du[c];
+          ny = ny + s_dv[c];
+        }
+        const float un =
+            uc - (lambda_d * cgx * psi_d + lambda_s * nx) / sx;
+        const float vn =
+            vc - (lambda_d * cgy * psi_d + lambda_s * ny) / sy;
+        s_u[c] = un;
+        s_v[c] = vn;
+      }
+    }
+    __syncthreads();
   }
 
-  for (int i = threadIdx.x; i < tile_h * tile_w; i += blockDim.x) {
-    const int ly = fuse + i / tile_w;
-    const int lx = fuse + i % tile_w;
-    const int y = row0 + ly;
-    const int x = col0 + lx;
-    if (y < h && x < w) {
-      const size_t g = (size_t)y * w + x;
-      u_out[batch + g] = u_a[ly * sw + lx];
-      v_out[batch + g] = v_a[ly * sw + lx];
+  // Each thread writes back the core cells it owns.
+#pragma unroll
+  for (int j = 0; j < CY; ++j) {
+    const int y = y0 + j;
+#pragma unroll
+    for (int i = 0; i < CX; ++i) {
+      const int x = tx + 32 * i;
+      if (y < fuse || y >= SH - fuse || x < fuse || x >= SW - fuse ||
+          row0 + y >= h || col0 + x >= w)
+        continue;
+      const size_t g = batch + (size_t)(row0 + y) * w + col0 + x;
+      u_out[g] = s_u[y * SW + x];
+      v_out[g] = s_v[y * SW + x];
     }
   }
 }
@@ -153,22 +250,34 @@ extern "C" int irls_gated_launch(
     const void* u, const void* v, const void* gx, const void* gy,
     const void* it, const void* labels, const void* sup_x,
     const void* sup_y, void* u_out, void* v_out, int h, int w, int batch,
-    int tile_h, int tile_w, int fuse, float lambda_d, float lambda_s,
-    float sigma_d, float sigma_s, int threads, void* stream) {
-  const size_t smem = 8 * sizeof(float) * (size_t)(tile_h + 2 * fuse) *
-                      (size_t)(tile_w + 2 * fuse);
+    int fuse, float lambda_d, float lambda_s, float sigma_d, float sigma_s,
+    void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       irls_gated_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (int)SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((w + tile_w - 1) / tile_w, (h + tile_h - 1) / tile_h,
-                  batch);
-  irls_gated_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid((w + SW - 2 * fuse - 1) / (SW - 2 * fuse),
+                  (h + SH - 2 * fuse - 1) / (SH - 2 * fuse), batch);
+  irls_gated_kernel<<<grid, dim3(32, SH / CY), SMEM,
+                      (cudaStream_t)stream>>>(
       (const float*)u, (const float*)v, (const float*)gx, (const float*)gy,
       (const float*)it, (const int*)labels, (const float*)sup_x,
-      (const float*)sup_y, (float*)u_out, (float*)v_out, h, w, tile_h,
-      tile_w, fuse, lambda_d, lambda_s, sigma_d, sigma_s);
+      (const float*)sup_y, (float*)u_out, (float*)v_out, h, w, fuse,
+      lambda_d, lambda_s, sigma_d, sigma_s);
   return (int)cudaGetLastError();
+}
+
+// Blocks of irls_gated_kernel one SM holds at once, or -(CUDA error).
+extern "C" int irls_gated_blocks_per_sm() {
+  cudaError_t err = cudaFuncSetAttribute(
+      irls_gated_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM);
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, irls_gated_kernel, THREADS, SMEM);
+  }
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 extern "C" const char* irls_gated_error_string(int code) {

@@ -9,8 +9,10 @@ demo solver (HornSchunckOF/hornSchunck.cpp:43-75) iterates
 
 :func:`hs_sweeps` runs ``fuse`` of these sweeps: on a CUDA tensor through
 ``csrc/hs_stencil.cu`` (one launch; the source says what bounds it on the
-H100 and how the fused design answers), on a CPU tensor through
-:func:`hs_sweeps_plain`. :func:`horn_schunck_fused` is the whole solve in
+H100 and how the fused design answers: each box sum is taken as column
+sums, then those summed along the row, which is the plain version's
+order), on a CPU tensor through :func:`hs_sweeps_plain`.
+:func:`horn_schunck_fused` is the whole solve in
 ``max_iterations // fuse`` launches plus one remainder launch, as
 ``horn_schunck_pallas`` runs its blocks. The TPU tiling knobs (tile
 alignment, ``pipelined``, ``mxu``, ``roll``, ``interpret``) have no
@@ -41,18 +43,16 @@ LAUNCHES = 0
 LAUNCHES_TILE = 0
 LAUNCHES_RESIDENT = 0
 LAUNCHES_RESIDENT2 = 0
-# Core tile of one block and its thread count. The shared tile is the core
-# plus a fuse*r halo on each side: 8 float fields, so
-# 8 * 4 * (TILE_H + 2*fuse*r) * (TILE_W + 2*fuse*r) bytes.
-# Chosen by a sweep of tiles, threads and fuse on the H100 (PERF.md).
-TILE_H = 32
-TILE_W = 64
+# The staged tile of one block (rows, columns) and its threads, as
+# csrc/hs_stencil.cu compiles them: u, v and their column sums in shared
+# memory (4 float fields), gx, gy, gt and inv_denom in the threads'
+# registers. A block writes the tile less a fuse*r halo on each side.
+# Chosen by a sweep of staged tiles on the H100 (PERF.md).
+STAGE = (64, 64)
 THREADS = 512
-# Sweeps per launch on the card, by the same sweep (the TPU's was 10).
+BLOCKS_PER_SM = 2
+# Sweeps per launch on the card (the TPU's was 10).
 DEFAULT_FUSE = 3
-# Block tiles the tile kernel tries in order, the first whose shared tile
-# fits (a deep fuse needs a smaller core per block).
-TILE_CHOICES = ((TILE_H, TILE_W), (32, 32), (16, 32), (16, 16), (8, 8))
 # The resident kernel's block tile and threads (u, v and an r halo in
 # shared memory).
 RESIDENT_TILE = (32, 64)
@@ -62,13 +62,15 @@ RESIDENT_THREADS = 256
 def _lib() -> ctypes.CDLL:
     lib = _build.load("hs_stencil")
     lib.hs_sweeps_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p])
     lib.hs_sweeps_launch.restype = ctypes.c_int
     lib.hs_tile_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_void_p])
     lib.hs_tile_launch.restype = ctypes.c_int
+    lib.hs_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.hs_blocks_per_sm.restype = ctypes.c_int
     lib.hs_sweeps_error_string.argtypes = [ctypes.c_int]
     lib.hs_sweeps_error_string.restype = ctypes.c_char_p
     return lib
@@ -86,19 +88,32 @@ def _lib_resident() -> ctypes.CDLL:
     return lib
 
 
-def smem_bytes(window: int, fuse: int, tile=(TILE_H, TILE_W)) -> int:
-    halo = fuse * (window // 2)
-    return 8 * 4 * (tile[0] + 2 * halo) * (tile[1] + 2 * halo)
+def smem_bytes(window: int, fuse: int) -> int:
+    """u, v and their column sums of the staged tile: the same at every
+    window and fuse that :func:`tile_for` accepts."""
+    tile_for(window, fuse)
+    return 4 * 4 * STAGE[0] * STAGE[1]
 
 
-def tile_for(window: int, fuse: int) -> tuple[int, int]:
-    """The tile kernel's block tile for ``fuse`` sweeps: the first of
-    :data:`TILE_CHOICES` whose shared tile fits one block."""
-    for tile in TILE_CHOICES:
-        if smem_bytes(window, fuse, tile) <= _build.MAX_SMEM_BYTES:
-            return tile
-    raise ValueError(f"hs_tile_sweeps: fuse={fuse} at window={window} "
-                     "fits no block's shared memory")
+def tile_for(window: int, fuse: int, name: str = "hs_tile_sweeps"
+             ) -> tuple[int, int]:
+    """The core one block writes for ``fuse`` sweeps: the staged tile less
+    a fuse*r halo on each side. Raises if nothing is left."""
+    need = fuse * (window // 2)
+    core = (STAGE[0] - 2 * need, STAGE[1] - 2 * need)
+    if min(core) < 1:
+        raise ValueError(f"{name}: fuse={fuse} at window={window} leaves no "
+                         f"core in the {STAGE[0]}x{STAGE[1]} staged tile")
+    return core
+
+
+def blocks_per_sm(tile: bool, window: int) -> int:
+    """Blocks of the sweeps (``tile`` False) or the tile kernel one SM of
+    the current card holds at once (CUDA's occupancy calculator)."""
+    lib = _lib()
+    n = lib.hs_blocks_per_sm(int(tile), window)
+    _build.check_launch(lib, "hs_sweeps", -n if n < 0 else 0)
+    return n
 
 
 def _box_sum(a: torch.Tensor, window: int) -> torch.Tensor:
@@ -133,11 +148,7 @@ def hs_sweeps(u, v, gx, gy, gt, inv_denom, window: int = 5, fuse: int = 1):
                          f"got window={window}, fuse={fuse}")
     if u.device.type == "cpu":
         return hs_sweeps_plain(u, v, gx, gy, gt, inv_denom, window, fuse)
-    smem = smem_bytes(window, fuse)
-    if smem > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"hs_sweeps: fuse={fuse} at window={window} needs "
-                         f"{smem} B of shared memory per block "
-                         f"(> {_build.MAX_SMEM_BYTES})")
+    tile_for(window, fuse, "hs_sweeps")
     lib = _lib()
     h, w = u.shape
     u_out = torch.empty_like(u)
@@ -146,8 +157,7 @@ def hs_sweeps(u, v, gx, gy, gt, inv_denom, window: int = 5, fuse: int = 1):
         rc = lib.hs_sweeps_launch(
             u.data_ptr(), v.data_ptr(), gx.data_ptr(), gy.data_ptr(),
             gt.data_ptr(), inv_denom.data_ptr(), u_out.data_ptr(),
-            v_out.data_ptr(), h, w, TILE_H, TILE_W, window, fuse,
-            1.0 / (window * window), THREADS,
+            v_out.data_ptr(), h, w, window, fuse, 1.0 / (window * window),
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, "hs_sweeps", rc)
     LAUNCHES += 1
@@ -243,7 +253,7 @@ def hs_tile_sweeps(u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0: int, col0: int,
     if u_p.device.type == "cpu":
         return hs_tile_sweeps_plain(u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0,
                                     col0, img_h, img_w, window, fuse)
-    tile_h, tile_w = tile_for(window, fuse)
+    tile_for(window, fuse)
     lib = _lib()
     u_out = u_p.new_empty((hh - 2 * need, hw - 2 * need))
     v_out = torch.empty_like(u_out)
@@ -252,7 +262,7 @@ def hs_tile_sweeps(u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0: int, col0: int,
             u_p.data_ptr(), v_p.data_ptr(), gx_p.data_ptr(), gy_p.data_ptr(),
             gt_p.data_ptr(), inv_p.data_ptr(), u_out.data_ptr(),
             v_out.data_ptr(), hh, hw, int(row0), int(col0), img_h, img_w,
-            tile_h, tile_w, window, fuse, 1.0 / (window * window), THREADS,
+            window, fuse, 1.0 / (window * window),
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, "hs_sweeps", rc)
     LAUNCHES_TILE += 1

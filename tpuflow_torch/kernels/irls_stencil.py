@@ -24,7 +24,10 @@ on one halo'd tile at a frame offset, through the same CUDA source.
 (``irls_gated_sweep_pallas``, OpticalFlow_BlockMatching.cpp:465-514): the
 same update with each neighbour term gated by same-region labels and
 weighted by the direction coherence 0.5 * (1 + cos(u, u_nbr)), batched
-over reference directions; CUDA tensors take ``csrc/irls_gated.cu``.
+over reference directions; CUDA tensors take ``csrc/irls_gated.cu``, which
+computes each edge's term once and adds it, negated, at the far end (the
+term is antisymmetric to the last bit, so this is bitwise the plain
+version's per-neighbour sum).
 """
 
 from __future__ import annotations
@@ -41,13 +44,22 @@ from tpuflow_torch.kernels import _build
 LAUNCHES = 0
 LAUNCHES_TILE = 0
 LAUNCHES_GATED = 0
-# Core tile of one block and its thread count. The shared tile is the core
+# Core tile of one block of csrc/irls_stencil.cu (irls_sweeps and
+# irls_tile_sweeps) and its thread count. The shared tile is the core
 # plus a fuse-pixel halo on each side: 7 float fields, so
 # 7 * 4 * (TILE_H + 2*fuse) * (TILE_W + 2*fuse) bytes.
 # Chosen by a sweep of tiles and threads at fuse 16 on the H100 (PERF.md).
 TILE_H = 32
 TILE_W = 32
 THREADS = 512
+
+# The gated kernel's staged tile (rows, columns) and threads per block, as
+# csrc/irls_gated.cu compiles them: u, v and the four edge terms of the
+# tile in shared memory (6 float fields), the gate bits in the threads'
+# registers. A block writes the tile less a fuse-pixel halo on each side.
+# Chosen by a sweep of staged tiles on the H100 (PERF.md).
+GATED_STAGE = (72, 128)
+GATED_THREADS = 768
 
 # Neighbour offsets (dx, dy), in the order the terms are summed.
 NEIGHBORS = ((-1, 0), (1, 0), (0, -1), (0, 1))
@@ -241,17 +253,42 @@ def irls_tile_sweeps(u_p, v_p, gx_p, gy_p, it_p, sup_x, sup_y, row0: int,
 def _lib_gated() -> ctypes.CDLL:
     lib = _build.load("irls_gated")
     lib.irls_gated_launch.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
-        + [ctypes.c_int, ctypes.c_void_p])
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
+        + [ctypes.c_void_p])
     lib.irls_gated_launch.restype = ctypes.c_int
+    lib.irls_gated_blocks_per_sm.argtypes = []
+    lib.irls_gated_blocks_per_sm.restype = ctypes.c_int
     lib.irls_gated_error_string.argtypes = [ctypes.c_int]
     lib.irls_gated_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def gated_core(fuse: int) -> tuple[int, int]:
+    """The core one block of the gated kernel writes at ``fuse``: the
+    staged tile less a fuse-pixel halo on each side. Raises if nothing is
+    left."""
+    core = (GATED_STAGE[0] - 2 * fuse, GATED_STAGE[1] - 2 * fuse)
+    if min(core) < 1:
+        raise ValueError(f"irls_gated_sweeps: fuse={fuse} leaves no core "
+                         f"in the {GATED_STAGE[0]}x{GATED_STAGE[1]} staged "
+                         "tile")
+    return core
+
+
 def smem_bytes_gated(fuse: int) -> int:
-    """Seven float fields and the int32 labels of the halo'd tile."""
-    return 8 * 4 * (TILE_H + 2 * fuse) * (TILE_W + 2 * fuse)
+    """u, v and the four edge terms of the staged tile: the same at every
+    fuse :func:`gated_core` accepts."""
+    gated_core(fuse)
+    return 6 * 4 * GATED_STAGE[0] * GATED_STAGE[1]
+
+
+def blocks_per_sm_gated() -> int:
+    """Blocks of the gated kernel one SM of the current card holds at once
+    (CUDA's occupancy calculator)."""
+    lib = _lib_gated()
+    n = lib.irls_gated_blocks_per_sm()
+    _build.check_launch(lib, "irls_gated", -n if n < 0 else 0)
+    return n
 
 
 def irls_gated_sweeps_plain(u, v, gx, gy, it, labels, sup_x, sup_y,
@@ -312,11 +349,7 @@ def irls_gated_sweeps(u, v, gx, gy, it, labels, sup_x, sup_y, fuse: int,
     if labels.dtype != torch.int32 or not labels.is_contiguous():
         raise TypeError("irls_gated_sweeps: the CUDA kernel takes contiguous "
                         f"int32 labels, got {labels.dtype}")
-    smem = smem_bytes_gated(fuse)
-    if smem > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"irls_gated_sweeps: fuse={fuse} needs {smem} B of "
-                         "shared memory per block "
-                         f"(> {_build.MAX_SMEM_BYTES})")
+    gated_core(fuse)
     lib = _lib_gated()
     h, w = gx.shape
     batch = u.shape[0] if u.dim() == 3 else 1
@@ -327,8 +360,8 @@ def irls_gated_sweeps(u, v, gx, gy, it, labels, sup_x, sup_y, fuse: int,
             u.data_ptr(), v.data_ptr(), gx.data_ptr(), gy.data_ptr(),
             it.data_ptr(), labels.data_ptr(), sup_x.data_ptr(),
             sup_y.data_ptr(), u_out.data_ptr(), v_out.data_ptr(), h, w,
-            batch, TILE_H, TILE_W, fuse, lambda_d, lambda_s, sigma_d,
-            sigma_s, THREADS, torch.cuda.current_stream().cuda_stream)
+            batch, fuse, lambda_d, lambda_s, sigma_d, sigma_s,
+            torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, "irls_gated", rc)
     LAUNCHES_GATED += 1
     return u_out, v_out
