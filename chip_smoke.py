@@ -10,8 +10,9 @@ Phases, each printing one line of its own numbers:
 2. build   — builds the seven CUDA sources of ``tpuflow_torch/csrc`` (one
    nvcc each, all started together, into ``build/tpuflow_torch``) and
    reports seconds and ptxas usage (registers, spills), which the rows of
-   ``hs_sweeps``, ``irls_gated_sweeps`` and ``hs_tile_sweeps`` log beside
-   the blocks per SM that CUDA's occupancy calculator gives their launch.
+   ``hs_sweeps``, ``irls_sweeps``, ``irls_gated_sweeps``,
+   ``hs_tile_sweeps`` and ``irls_tile_sweeps`` log beside the blocks per
+   SM that CUDA's occupancy calculator gives their launch.
 3. kernels — each of the eleven kernels against its plain PyTorch version
    on the card, on float32 inputs from a numpy seed, with both versions'
    device times (``cuda_ms(..., device_only=True)``), the least time the
@@ -21,7 +22,9 @@ Phases, each printing one line of its own numbers:
    same function (``library_ms``; the port never calls it): HS 100 sweeps
    at 1080x1920 and IRLS 512 sweeps at 376x1240 (each at its main-path
    fuse and at a fuse that leaves a remainder) and both at 375x1242 (the
-   ragged KITTI size), HS also at 3x3 there; sepconv at 1080x1920 with 48
+   ragged KITTI size), HS also at 3x3 there; IRLS 512 sweeps at fuse 16 at
+   each level of BA's pyramid, where the launcher picks its staged tile
+   per level (bitwise, launches counted, device ms per level); sepconv at 1080x1920 with 48
    and 17 taps and at 375x1242 with 64; poly expansion at 1080x1920 with
    n = 8 and 5 and at 375x1242; blur-solve at 1080x1920 with winsize 48 and
    at 375x1242 with 64; the gated IRLS 256 sweeps at 376x1240 and
@@ -33,8 +36,15 @@ Phases, each printing one line of its own numbers:
    each with a zero pad of (u, v) between launches, as a 1x1 mesh's halo
    exchange gives it, and again on a 2x2 cut at the tiles' frame origins,
    stitched, bitwise equal to hs_sweeps / irls_sweeps on the whole frame;
+   the IRLS tile also at fuse 15 and at 375x1242, bitwise;
    the resident HS pair at 1080x1920, 100 sweeps (and 99, which ends in
-   the second buffer), resident2 beside ``horn_schunck_fused``.
+   the second buffer), resident2 beside ``horn_schunck_fused``. Blocks
+   deeper than one launch takes, which the wrappers run as several
+   launches: ``hs_sweeps`` and ``hs_tile_sweeps`` at window 5, fuse 16 at
+   1080x1920 (and the tile's 2x2 cut against ``hs_sweeps``),
+   ``irls_sweeps`` and ``irls_tile_sweeps`` at fuse 40 at 376x1240, the
+   gated IRLS at fuse 40 with two directions; each bitwise its plain
+   version, with its launch count.
 4. main    — each main path runs once through the public entry points,
    with every launch counter set to 0 just before it and read just after;
    each counter must show its kernel ran exactly as often as that path
@@ -57,7 +67,9 @@ Phases, each printing one line of its own numbers:
 5. hs, ba, fb, bm — the main-path results are finite, of the right shape,
    and agree with the same calls on float32 CPU copies (which take the
    plain versions); the BA block counts per level agree; end-to-end
-   times on the card beside the chip host's CPU time. The flagship
+   times on the card beside the chip host's CPU time, and one profiler
+   frame of the BA pyramid (its IRLS kernel time per frame, both
+   stages). The flagship
    reports its region count, the EPE of its block-matching field against
    the known pan, the compensation PSNR against the unmoved frame and ms
    per pair; its CPU check is the same three-frame run on a 96x160 crop
@@ -136,6 +148,9 @@ BM_NOISE = (1.0, 1.0, 2.5)
 BM_CROP = (slice(100, 196), slice(400, 560))
 BM_CROP_SEARCH, BM_CROP_ITERS = 15, 256
 GATED_SWEEPS, GATED_FUSE = 256, 16
+# Blocks deeper than one launch of the kernel takes (HS at window 5: 15;
+# the IRLS kernels: 35), which the wrappers split into launches.
+DEEP_HS_FUSE, DEEP_IRLS_FUSE = 16, 40
 MS_R, MS_KI = 20, 16.0 / 255.0
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -250,12 +265,17 @@ def resident_bound(shape, sweeps, window, recip):
 
 
 def irls_bound(shape, sweeps):
-    # Per pixel: the data term and its psi (10) and the two updates (12);
-    # per in-frame neighbour pair and direction: u - un, psi, the add (8)
-    # for each of u and v.
+    # Per pixel: the data term (4) and its psi (5: x^2, s + x^2, d^2,
+    # x * 2s and the division, 2s being one constant per launch),
+    # lambda_d * psi once and its products with gx and gy (3), and for each
+    # of u and v the smoothness product, the sum, the division by sup and
+    # the subtraction (8). Per edge between two pixels in the frame, for
+    # each of u and v: the difference, psi (5), the add at one end and the
+    # subtraction at the other (8): the term is antisymmetric, so the
+    # function needs it once per edge, not once per direction.
     h, w = shape
-    pairs = 2 * (h * (w - 1) + (h - 1) * w)
-    return bound(7 * 4 * h * w, sweeps * (22 * h * w + 16 * pairs))
+    edges = h * (w - 1) + (h - 1) * w
+    return bound(7 * 4 * h * w, sweeps * (20 * h * w + 16 * edges))
 
 
 def sep_bound(hp, wp, nky, nkx):
@@ -450,15 +470,34 @@ def read_ptxas(report: str) -> dict[str, dict]:
     return usage
 
 
-def kernel_usage(entry: str, blocks_per_sm: int) -> dict:
+def kernel_usage(entry: str, blocks_per_sm: int, *more: str) -> dict:
     """The blocks per SM the occupancy calculator gives a kernel's launch,
     beside ptxas's registers and spills for the entry whose mangled name
-    contains ``entry``."""
-    found = [u for name, u in PTXAS.items() if entry in name]
+    contains ``entry`` (and each of ``more``)."""
+    found = [u for name, u in PTXAS.items()
+             if all(e in name for e in (entry, *more))]
     if len(found) != 1:
         raise AssertionError(f"ptxas report: {len(found)} entries match "
                              f"{entry!r}")
     return {"blocks_per_sm": blocks_per_sm, **found[0]}
+
+
+def irls_usage(entry: str, tile: bool) -> dict:
+    """:func:`kernel_usage` of both stages of csrc/irls_stencil.cu (WIDE
+    takes the frame of the row, NARROW the coarser pyramid levels)."""
+    from tpuflow_torch.kernels import irls_stencil
+
+    out = {}
+    for stage, narrow, (sh, sw), threads in (
+            ("wide", False, irls_stencil.STAGE, irls_stencil.THREADS),
+            ("narrow", True, irls_stencil.NARROW_STAGE,
+             irls_stencil.NARROW_THREADS)):
+        # The mangled Stage<SH, CX, CY, ...> of the instantiation.
+        args = f"StageILi{sh}ELi{sw // 32}ELi{32 * sh // threads}E"
+        usage = kernel_usage(entry, irls_stencil.blocks_per_sm(tile, narrow),
+                             args)
+        out.update({f"{stage}_{k}": v for k, v in usage.items()})
+    return out
 
 
 def phase_build() -> None:
@@ -621,9 +660,10 @@ def phase_kernels(dev) -> dict:
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                **irls_bound(shape, BA_ITER_MAX), "library_ms": None}
         log("kernels", kernel="irls_sweeps", shape=shape, sweeps=BA_ITER_MAX,
-            fuse=BA_FUSE, **row)
+            fuse=BA_FUSE, **row, **irls_usage("irls_sweeps_kernel", False))
         out.setdefault("irls_sweeps", row)
         torch.cuda.synchronize()
+    irls_levels(dev)
 
     # sepconv: Farneback's box (48, 64 uniform taps) and the poly taps (17).
     # Library call: one 2-D correlation with the outer product ky x kx.
@@ -682,7 +722,53 @@ def phase_kernels(dev) -> dict:
 
     phase_kernels_flagship(dev, out)
     phase_kernels_dist(dev, out)
+    phase_kernels_deep(dev)
     return out
+
+
+def ba_level_shapes() -> list[tuple[int, int]]:
+    """(h, w) of each level of BA's pyramid at BA_SHAPE, finest first."""
+    from tpuflow_torch.pyramid.pyramid import pyramid_sizes
+
+    return [(h, w) for w, h in pyramid_sizes(BA_SHAPE[1], BA_SHAPE[0],
+                                             BA_LEVEL)]
+
+
+def irls_levels(dev) -> list[float]:
+    """``irls_sweeps`` at each level of BA's pyramid, BA_ITER_MAX sweeps in
+    blocks of BA_FUSE as ``optical_flow_pyramid_fast`` launches them, each
+    bitwise ``irls_sweeps_plain`` in its launch count; returns the levels'
+    device ms. csrc/irls_stencil.cu's launcher picks its staged tile (WIDE
+    or NARROW) by the frame, so this holds both at the main path's
+    shapes."""
+    from tpuflow_torch.kernels import irls_stencil
+    from tpuflow_torch.solvers.black_anandan import (
+        LAMBDA_D, LAMBDA_S, SIGMA_D_L0, SIGMA_S_L0, irls_sup)
+
+    consts = (LAMBDA_D, LAMBDA_S, SIGMA_D_L0, SIGMA_S_L0)
+    level_ms = []
+    for shape in ba_level_shapes():
+        u, v, gx, gy, it = f32(dev, *irls_fields(shape, 4))
+        sup = irls_sup(gx, gy, *consts)
+
+        def run():
+            a, b = u, v
+            for _ in range(BA_ITER_MAX // BA_FUSE):
+                a, b = irls_stencil.irls_sweeps(a, b, gx, gy, it, *sup,
+                                                BA_FUSE, *consts)
+            return a, b
+
+        exact_launches(
+            "irls_sweeps", irls_stencil, "LAUNCHES",
+            launches_of(BA_ITER_MAX, BA_FUSE), run,
+            irls_stencil.irls_sweeps_plain(u, v, gx, gy, it, *sup,
+                                           BA_ITER_MAX, *consts),
+            level=shape, sweeps=BA_ITER_MAX, fuse=BA_FUSE)
+        level_ms.append(cuda_ms(run, device_only=True))
+        log("kernels", kernel="irls_sweeps", level=shape, ms=level_ms[-1])
+    log("kernels", kernel="irls_sweeps", pyramid_levels=len(level_ms),
+        pyramid_ms=sum(level_ms))
+    return level_ms
 
 
 def flagship_refine_inputs(dev, shape):
@@ -746,6 +832,16 @@ def phase_kernels_flagship(dev, out) -> None:
                            gated_bound(cells, GATED_SWEEPS, batch),
                            plain_reps=1, sweeps=GATED_SWEEPS, fuse=fuse,
                            batch=batch, **usage)
+            if shape == BM_SHAPE and batch == 2:
+                deep = DEEP_IRLS_FUSE
+                exact_launches(
+                    "irls_gated_sweeps", irls_stencil, "LAUNCHES_GATED",
+                    launches_of(deep, irls_stencil.GATED_MAX_FUSE),
+                    lambda: irls_stencil.irls_gated_sweeps(
+                        u0, u0, gx, gy, it, labels, *sup, deep, *consts),
+                    irls_stencil.irls_gated_sweeps_plain(
+                        u0, u0, gx, gy, it, labels, *sup, deep, *consts),
+                    shape=shape, batch=batch, fuse=deep)
 
     lab = bm_flow._to_lab(voronoi_frames()[0][1], 255.0)[1].to(dev)
     crop = lab[BM_CROP].contiguous()
@@ -772,6 +868,82 @@ def exact(name: str, got, want) -> float:
     return err
 
 
+def launches_of(sweeps: int, per_launch: int) -> int:
+    """Launches of ``sweeps`` sweeps where one launch takes at most
+    ``per_launch``."""
+    return -(-sweeps // per_launch)
+
+
+def exact_launches(name, module, counter, expected, fn, want,
+                   **what) -> None:
+    """fn() bitwise equal to ``want`` in ``expected`` launches
+    (``module.<counter>``)."""
+    import torch
+
+    before = getattr(module, counter)
+    got = fn()
+    torch.cuda.synchronize()
+    launches = getattr(module, counter) - before
+    err = exact(f"{name} {what}", got, want)
+    if launches != expected:
+        raise AssertionError(f"{name} {what}: {launches} launches, "
+                             f"expected {expected}")
+    log("kernels", kernel=name, **what, launches=launches, max_abs_err=err)
+
+
+def phase_kernels_deep(dev) -> None:
+    """The four whole-frame and tile wrappers at depths beyond one launch
+    (see the module docstring, phase 3; the gated kernel's check runs in
+    phase_kernels_flagship, on the flagship's inputs)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpuflow_torch.kernels import hs_stencil, irls_stencil
+    from tpuflow_torch.solvers.black_anandan import (
+        LAMBDA_D, LAMBDA_S, SIGMA_D_L0, SIGMA_S_L0, irls_sup)
+
+    fuse = DEEP_HS_FUSE
+    need = fuse * (HS_WINDOW // 2)
+    n = launches_of(fuse, hs_stencil.max_fuse(HS_WINDOW))
+    fields = f32(dev, *hs_fields(HS_SHAPE, 6))
+    what = dict(shape=HS_SHAPE, window=HS_WINDOW, fuse=fuse)
+    whole = hs_stencil.hs_sweeps_plain(*fields, HS_WINDOW, fuse)
+    exact_launches("hs_sweeps", hs_stencil, "LAUNCHES", n,
+               lambda: hs_stencil.hs_sweeps(*fields, HS_WINDOW, fuse), whole,
+               **what)
+    tile = [F.pad(f, (need,) * 4) for f in fields]
+    tile_args = (-need, -need, *HS_SHAPE, HS_WINDOW, fuse)
+    exact_launches("hs_tile_sweeps", hs_stencil, "LAUNCHES_TILE", n,
+               lambda: hs_stencil.hs_tile_sweeps(*tile, *tile_args),
+               hs_stencil.hs_tile_sweeps_plain(*tile, *tile_args), **what)
+    exact_launches("hs_tile_sweeps", hs_stencil, "LAUNCHES_TILE", 4 * n,
+               lambda: tile_chain(hs_stencil.hs_tile_sweeps, *fields[:2],
+                                  fields[2:], HS_SHAPE, fuse, fuse,
+                                  HS_WINDOW // 2, True, (),
+                                  lambda k: (HS_WINDOW, k)),
+               whole, cut="2x2 vs hs_sweeps", **what)
+    del fields, tile, whole
+    torch.cuda.synchronize()
+
+    fuse = DEEP_IRLS_FUSE
+    consts = (LAMBDA_D, LAMBDA_S, SIGMA_D_L0, SIGMA_S_L0)
+    n = launches_of(fuse, irls_stencil.MAX_FUSE)
+    fields = f32(dev, *irls_fields(BA_SHAPE, 7))
+    sup = irls_sup(fields[2], fields[3], *consts)
+    what = dict(shape=BA_SHAPE, fuse=fuse)
+    exact_launches("irls_sweeps", irls_stencil, "LAUNCHES", n,
+               lambda: irls_stencil.irls_sweeps(*fields, *sup, fuse, *consts),
+               irls_stencil.irls_sweeps_plain(*fields, *sup, fuse, *consts),
+               **what)
+    tile = [F.pad(f, (fuse,) * 4) for f in fields]
+    tile_args = (*sup, -fuse, -fuse, *BA_SHAPE, fuse, *consts)
+    exact_launches("irls_tile_sweeps", irls_stencil, "LAUNCHES_TILE", n,
+               lambda: irls_stencil.irls_tile_sweeps(*tile, *tile_args),
+               irls_stencil.irls_tile_sweeps_plain(*tile, *tile_args),
+               **what)
+    torch.cuda.synchronize()
+
+
 def cut_2x2(fields, halo):
     """The 2x2 tiles of full (H, W) fields, each with ``halo`` cells of the
     zero-padded frame: ((i, k), tiles, (row0, col0)) per tile, (row0,
@@ -796,28 +968,39 @@ def stitch_2x2(tiles: dict):
                       for i in range(2)], dim=-2)
 
 
-def tile_chain(sweep, u, v, fixed, shape, n_iters, fuse, halo, cut, args):
-    """``n_iters`` sweeps in blocks of ``fuse`` through a tile-sweep
-    function, on the whole frame as one tile at (-halo, -halo) (``cut``
-    False) or on its 2x2 cut, stitched after each block; (u, v) get a zero
-    pad of ``halo`` before each block, the ``fixed`` fields once."""
+def tiles_of(fields, halo, cut):
+    """:func:`cut_2x2` (``cut``), or the whole frame as one tile at
+    (-halo, -halo) with a zero pad of ``halo``."""
     import torch
     import torch.nn.functional as F
 
-    if not cut:
-        fixed_p = [F.pad(f, (halo,) * 4) for f in fixed]
-        for _ in range(n_iters // fuse):
-            uv = F.pad(torch.stack((u, v)), (halo,) * 4)
-            u, v = sweep(uv[0], uv[1], *fixed_p, *args[0], -halo, -halo,
-                         *shape, *args[1])
-        return u, v
-    fixed_t = {key: t for key, t, _ in cut_2x2(fixed, halo)}
-    for _ in range(n_iters // fuse):
+    if cut:
+        return list(cut_2x2(fields, halo))
+    return [((0, 0), F.pad(torch.stack(list(fields)), (halo,) * 4),
+             (-halo, -halo))]
+
+
+def tile_chain(sweep, u, v, fixed, shape, n_iters, fuse, step, cut, pre,
+               post):
+    """``n_iters`` sweeps through a tile-sweep function in blocks of
+    ``fuse`` and one of the remainder, on the whole frame as one tile
+    (``cut`` False) or on its 2x2 cut, stitched after each block. A block
+    of k sweeps gives (u, v) a zero pad of k * ``step`` cells (the fixed
+    fields get theirs once per pad width) and calls ``sweep(u, v, *fixed,
+    *pre, row0, col0, *shape, *post(k))``."""
+    n_full, rem = divmod(n_iters, fuse)
+    fixed_t = {}
+    for k in [fuse] * n_full + ([rem] if rem else []):
+        halo = k * step
+        if halo not in fixed_t:
+            fixed_t[halo] = {key: t for key, t, _ in
+                             tiles_of(fixed, halo, cut)}
         us, vs = {}, {}
-        for key, uv, (row0, col0) in cut_2x2((u, v), halo):
-            us[key], vs[key] = sweep(uv[0], uv[1], *fixed_t[key], *args[0],
-                                     row0, col0, *shape, *args[1])
-        u, v = stitch_2x2(us), stitch_2x2(vs)
+        for key, uv, (row0, col0) in tiles_of((u, v), halo, cut):
+            us[key], vs[key] = sweep(uv[0], uv[1], *fixed_t[halo][key],
+                                     *pre, row0, col0, *shape, *post(k))
+        u, v = (stitch_2x2(us), stitch_2x2(vs)) if cut else (us[0, 0],
+                                                            vs[0, 0])
     return u, v
 
 
@@ -837,7 +1020,7 @@ def phase_kernels_dist(dev, out) -> None:
 
     def hs_run(sweep, cut=False):
         return tile_chain(sweep, u, v, fixed, HS4K_SHAPE, HS_ITERS, fuse,
-                          need, cut, ((), (HS_WINDOW, fuse)))
+                          HS_WINDOW // 2, cut, (), lambda k: (HS_WINDOW, k))
 
     kernel_row(out, "hs_tile_sweeps", HS4K_SHAPE,
                lambda: hs_run(hs_stencil.hs_tile_sweeps),
@@ -859,13 +1042,14 @@ def phase_kernels_dist(dev, out) -> None:
 
     def irls_run(sweep, cut=False):
         return tile_chain(sweep, u, v, (gx, gy, it), BA_SHAPE, BA_ITER_MAX,
-                          BA_FUSE, BA_FUSE, cut, (sup, (BA_FUSE, *consts)))
+                          BA_FUSE, 1, cut, sup, lambda k: (k, *consts))
 
     kernel_row(out, "irls_tile_sweeps", BA_SHAPE,
                lambda: irls_run(irls_stencil.irls_tile_sweeps),
                lambda: irls_run(irls_stencil.irls_tile_sweeps_plain),
                irls_bound(BA_SHAPE, BA_ITER_MAX), sweeps=BA_ITER_MAX,
-               fuse=BA_FUSE, origin=(-BA_FUSE, -BA_FUSE))
+               fuse=BA_FUSE, origin=(-BA_FUSE, -BA_FUSE),
+               **irls_usage("irls_tile_kernel", True))
     a, b = u, v
     for _ in range(BA_ITER_MAX // BA_FUSE):
         a, b = irls_stencil.irls_sweeps(a, b, gx, gy, it, *sup, BA_FUSE,
@@ -875,6 +1059,22 @@ def phase_kernels_dist(dev, out) -> None:
     log("kernels", kernel="irls_tile_sweeps", shape=BA_SHAPE, cut="2x2",
         sweeps=BA_ITER_MAX, fuse=BA_FUSE, max_abs_err_vs_irls_sweeps=err)
     del u, v, gx, gy, it, a, b
+    # The remainder fuse and the ragged KITTI size, bitwise.
+    for shape, fuse in ((BA_SHAPE, 15), (RAGGED_SHAPE, BA_FUSE),
+                        (RAGGED_SHAPE, 15)):
+        u, v, *fixed = f32(dev, *irls_fields(shape, 4))
+        sup = irls_sup(fixed[0], fixed[1], *consts)
+
+        def chain(sweep, shape=shape, fuse=fuse, u=u, v=v, fixed=fixed,
+                  sup=sup):
+            return tile_chain(sweep, u, v, fixed, shape, BA_ITER_MAX, fuse,
+                              1, False, sup, lambda k: (k, *consts))
+
+        exact_launches("irls_tile_sweeps", irls_stencil, "LAUNCHES_TILE",
+                       launches_of(BA_ITER_MAX, fuse),
+                       lambda: chain(irls_stencil.irls_tile_sweeps),
+                       chain(irls_stencil.irls_tile_sweeps_plain),
+                       shape=shape, sweeps=BA_ITER_MAX, fuse=fuse)
     torch.cuda.synchronize()
 
     prev, nxt = f32(dev, *frames_1080p())
@@ -1150,6 +1350,7 @@ def phase_ba(frames, flow, blocks) -> None:
     log("ba", shape=BA_SHAPE, blocks=blocks, max_abs_err_vs_cpu=err,
         max_abs_u=float(flow[0].abs().max()), card_ms_per_frame=ms,
         card_fps=1e3 / ms, cpu_f32_ms_per_frame=cpu_ms)
+    profile_frame("ba", lambda: ba_call(*frames))
 
 
 def check_flow_vs_cpu(name: str, flow, ref) -> float:

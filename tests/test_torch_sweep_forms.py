@@ -16,7 +16,13 @@ are the plain versions' arithmetic:
   ``hs_sweeps_plain`` and ``hs_tile_sweeps_plain`` (``csrc/hs_stencil.cu``);
 - (d) the launch geometry: the Python constants match the CUDA sources,
   the shared memory fits a block, and the blocks per SM the designs intend
-  hold by arithmetic (228 KB per SM, 1 KB reserved per block).
+  hold by arithmetic (228 KB per SM, 1 KB reserved per block);
+- (e) a test-local edge form of the Black-Anandan sweep (each right and
+  down edge once where both ends are in the frame, then per cell the left
+  edge subtracted, the right added, the upper subtracted, the down added,
+  as ``csrc/irls_stencil.cu`` computes it on a staged tile) equals
+  ``irls_sweeps_plain`` and ``irls_tile_sweeps_plain``, on fields with
+  exact zeros and equal neighbours, where a wrong sign of zero would show.
 """
 
 import re
@@ -28,6 +34,7 @@ import torch
 
 from tpuflow_torch.core import borders as bd
 from tpuflow_torch.kernels import hs_stencil, irls_stencil
+from tpuflow_torch.kernels import _build
 from tpuflow_torch.kernels._build import MAX_SMEM_BYTES
 from tpuflow_torch.solvers import bm_flow
 from tpuflow_torch.solvers.mestimators import geman_mcclure_psi as psi
@@ -253,11 +260,26 @@ def _cu_constants(name: str) -> dict:
             re.findall(r"constexpr int (\w+) = (\d+);", src)}
 
 
+def _cu_stages(name: str) -> dict:
+    """{name: (SH, CX, CY, blocks per SM)} of ``using name = Stage<...>``."""
+    src = (CSRC / f"{name}.cu").read_text()
+    return {k: tuple(int(a) for a in args.split(","))
+            for k, args in re.findall(r"using (\w+) = Stage<([\d, ]+)>;", src)}
+
+
 def test_python_geometry_matches_cuda_sources():
     """(d) The wrappers' staged tiles and threads are the sources'."""
     g = _cu_constants("irls_gated")
     assert (g["SH"], 32 * g["CX"]) == irls_stencil.GATED_STAGE
     assert 32 * g["SH"] // g["CY"] == irls_stencil.GATED_THREADS
+    s = _cu_stages("irls_stencil")
+    for name, stage, threads in (
+            ("WIDE", irls_stencil.STAGE, irls_stencil.THREADS),
+            ("NARROW", irls_stencil.NARROW_STAGE,
+             irls_stencil.NARROW_THREADS)):
+        sh, cx, cy, blocks = s[name]
+        assert (sh, 32 * cx) == stage and 32 * sh // cy == threads
+        assert blocks == 1
     h = _cu_constants("hs_stencil")
     assert (h["SH"], 32 * h["CX"]) == hs_stencil.STAGE
     assert 32 * h["SH"] // h["CY"] == hs_stencil.THREADS
@@ -280,6 +302,41 @@ def test_gated_geometry(fuse):
     assert _blocks_by_arithmetic(smem, irls_stencil.GATED_THREADS) >= 1
 
 
+@pytest.mark.parametrize("fuse", range(1, irls_stencil.MAX_FUSE + 2))
+@pytest.mark.parametrize("kernel", ["irls_stencil", "irls_narrow",
+                                    "irls_gated"])
+def test_irls_geometry(kernel, fuse):
+    """(d) Every fuse up to F_max leaves a core and fits one block's shared
+    memory, with one block per SM; one deeper raises (the wrappers split
+    it; csrc/irls_stencil.cu's launcher takes NARROW only where it leaves a
+    core, so F_max is WIDE's)."""
+    narrow = irls_stencil.NARROW_STAGE
+    core, smem, f_max, threads = {
+        "irls_stencil": (irls_stencil.stage_core, irls_stencil.smem_bytes,
+                         irls_stencil.MAX_FUSE, irls_stencil.THREADS),
+        "irls_narrow": (lambda f: _build.core("narrow", narrow, f),
+                        lambda f: 6 * 4 * narrow[0] * narrow[1],
+                        _build.max_halo(narrow), irls_stencil.NARROW_THREADS),
+        "irls_gated": (irls_stencil.gated_core, irls_stencil.smem_bytes_gated,
+                       irls_stencil.GATED_MAX_FUSE,
+                       irls_stencil.GATED_THREADS)}[kernel]
+    if fuse > f_max:
+        with pytest.raises(ValueError, match="leaves no core"):
+            core(fuse)
+        return
+    assert min(core(fuse)) >= 1
+    assert smem(fuse) <= MAX_SMEM_BYTES
+    assert _blocks_by_arithmetic(smem(fuse), threads) >= 1
+
+
+def test_irls_stage_covers_kitti_in_one_wave():
+    """(d) At BA's fuse 16 the 376x1240 frame takes 130 blocks of
+    csrc/irls_stencil.cu, one wave of the H100's 132 SMs."""
+    h, w = irls_stencil.stage_core(16)
+    assert irls_stencil.MAX_FUSE >= 16
+    assert -(-376 // h) * -(-1240 // w) == 130
+
+
 @pytest.mark.parametrize("window", [3, 5, 7])
 def test_hs_tile_geometry(window):
     """(d) tile_for accepts exactly the fuses that leave a core; each of
@@ -300,3 +357,115 @@ def test_hs_tile_geometry(window):
             >= hs_stencil.BLOCKS_PER_SM
     assert accepted == list(range(1, accepted[-1] + 1))
     assert 5 in accepted and (window > 5 or 10 in accepted)
+
+
+def _irls_edge_form_tile(u_p, v_p, gx, gy, it, sup_x, sup_y, row0, col0,
+                         img_h, img_w, fuse, lambda_d, lambda_s, sigma_d,
+                         sigma_s):
+    """csrc/irls_stencil.cu's sweeps on one staged tile, whose (0, 0) sits
+    at frame coordinates (row0, col0): per sweep t, each right and down
+    edge whose ends are both in the frame once, (psi(du), psi(dv)); then
+    each cell of the valid region [t, size - t) that is in the frame adds
+    -(left edge), +(right edge), -(upper edge), +(down edge), each where its
+    neighbour is in the frame, and divides by sup. Returns the core."""
+    hh, hw = u_p.shape
+    ys = torch.arange(hh)[:, None] + row0
+    xs = torch.arange(hw)[None, :] + col0
+    live = (ys >= 0) & (ys < img_h) & (xs >= 0) & (xs < img_w)
+    left, right, up, down = (torch.zeros_like(live) for _ in range(4))
+    right[:, :-1] = live[:, :-1] & live[:, 1:]
+    down[:-1, :] = live[:-1, :] & live[1:, :]
+    left[:, 1:] = right[:, :-1]
+    up[1:, :] = down[:-1, :]
+    u, v = u_p.clone(), v_p.clone()
+    for t in range(1, fuse + 1):
+        edges = []
+        for f in (u, v):
+            r = torch.zeros_like(f)
+            d = torch.zeros_like(f)
+            r[:, :-1] = psi(f[:, :-1] - f[:, 1:], sigma_s)
+            d[:-1, :] = psi(f[:-1, :] - f[1:, :], sigma_s)
+            edges.append((r, d))
+        psi_d = psi(gx * u + gy * v + it, sigma_d)
+        sums = []
+        for r, d in edges:
+            from_left = torch.zeros_like(r)
+            from_left[:, 1:] = r[:, :-1]
+            from_up = torch.zeros_like(d)
+            from_up[1:, :] = d[:-1, :]
+            s = torch.zeros_like(r)
+            s = torch.where(left, s + -from_left, s)
+            s = torch.where(right, s + r, s)
+            s = torch.where(up, s + -from_up, s)
+            s = torch.where(down, s + d, s)
+            sums.append(s)
+        new_u = u - (lambda_d * gx * psi_d + lambda_s * sums[0]) / sup_x
+        new_v = v - (lambda_d * gy * psi_d + lambda_s * sums[1]) / sup_y
+        region = torch.zeros_like(live)
+        region[t : hh - t, t : hw - t] = True
+        region &= live
+        u = torch.where(region, new_u, u)
+        v = torch.where(region, new_v, v)
+    return u[fuse : hh - fuse, fuse : hw - fuse], \
+        v[fuse : hh - fuse, fuse : hw - fuse]
+
+
+IRLS_ARGS = (5.0, 1.0, 0.3, 0.1)  # lambda_d, lambda_s, sigma_d, sigma_s
+IRLS_SUPS = (_f32([41.5]), _f32([38.25]))
+
+
+def _irls_fields(kind, shape, seed):
+    """u, v, gx, gy, it in float32. ``patches``: random fields with a block
+    of exact zeros and a block of one constant in u and v (equal neighbours:
+    differences of +0), and zeros in gx and it; ``zero``: u = v = 0."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    u, v = 0.2 * rng.normal(size=shape), 0.2 * rng.normal(size=shape)
+    gx, gy = rng.normal(size=shape), rng.normal(size=shape)
+    it = 0.1 * rng.normal(size=shape)
+    if kind == "patches":
+        for f in (u, v):
+            f[h // 4 : h // 2, w // 4 : w // 2] = 0.0
+            f[h // 2 :, w // 2 :] = 0.125
+        gx[: h // 3, :] = 0.0
+        it[:, : w // 3] = 0.0
+    elif kind == "zero":
+        u[:], v[:] = 0.0, 0.0
+    return [_f32(a) for a in (u, v, gx, gy, it)]
+
+
+@pytest.mark.parametrize("fuse", [1, 15, 16, 17])
+@pytest.mark.parametrize("kind", ["random", "patches", "zero"])
+def test_irls_edge_form_equals_plain(kind, fuse):
+    """(e) The whole ragged frame as the kernel stages it (a zero halo of
+    fuse cells outside the frame) equals irls_sweeps_plain bitwise."""
+    shape = (37, 53)
+    u, v, gx, gy, it = _irls_fields(kind, shape, fuse)
+    want = irls_stencil.irls_sweeps_plain(u, v, gx, gy, it, *IRLS_SUPS, fuse,
+                                          *IRLS_ARGS)
+    padded = [bd.pad2d(f, fuse, bd.ZERO) for f in (u, v, gx, gy, it)]
+    got = _irls_edge_form_tile(*padded, *IRLS_SUPS, -fuse, -fuse, *shape,
+                               fuse, *IRLS_ARGS)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not torch.equal(want[0], u)
+
+
+@pytest.mark.parametrize("origin", ["top_left", "bottom_right", "interior"])
+@pytest.mark.parametrize("fuse", [1, 15, 16, 17])
+@pytest.mark.parametrize("kind", ["random", "patches"])
+def test_irls_edge_form_tile_equals_plain(kind, fuse, origin):
+    """(e) A halo'd tile whose core sits at a corner or inside a ragged
+    frame (halo cells outside the frame hold random values, which the
+    sweeps must ignore) equals irls_tile_sweeps_plain bitwise."""
+    img, core = (29, 41), (9, 14)
+    cy, cx = {"top_left": (0, 0), "bottom_right": (20, 27),
+              "interior": (10, 13)}[origin]
+    shape = (core[0] + 2 * fuse, core[1] + 2 * fuse)
+    fields = _irls_fields(kind, shape, 100 + fuse)
+    args = (*IRLS_SUPS, cy - fuse, cx - fuse, *img, fuse, *IRLS_ARGS)
+    want = irls_stencil.irls_tile_sweeps_plain(*fields, *args)
+    got = _irls_edge_form_tile(*fields, *args)
+    assert want[0].shape == core
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -12,6 +12,9 @@ spills) is kept beside the library as ``<name>.log``.
 multiply-add, so a kernel rounds after every operation as PyTorch's
 eager elementwise ops do, and its plain version on the card can be held
 to it tightly.
+
+:func:`split_fuse` runs a block of sweeps deeper than one launch of a
+fused sweep kernel takes as several launches of that kernel.
 """
 
 from __future__ import annotations
@@ -96,3 +99,53 @@ def check_launch(lib: ctypes.CDLL, prefix: str, rc: int) -> None:
     if rc != 0:
         msg = getattr(lib, f"{prefix}_error_string")(rc).decode()
         raise RuntimeError(f"{prefix} launch failed: CUDA error {rc} ({msg})")
+
+
+def core(name: str, stage: tuple[int, int], halo: int) -> tuple[int, int]:
+    """The core one block of a fused sweep kernel writes: its (rows,
+    columns) staged tile less ``halo`` cells on each side. Raises if
+    nothing is left."""
+    out = (stage[0] - 2 * halo, stage[1] - 2 * halo)
+    if min(out) < 1:
+        raise ValueError(f"{name}: a {halo}-cell halo leaves no core in the "
+                         f"{stage[0]}x{stage[1]} staged tile")
+    return out
+
+
+def max_halo(stage: tuple[int, int]) -> int:
+    """The widest halo that leaves a core in a staged tile."""
+    return (min(stage) - 1) // 2
+
+
+def fuse_parts(fuse: int, f_max: int) -> list[int]:
+    """``fuse`` sweeps as ceil(fuse / f_max) parts of near-equal depth,
+    none deeper than ``f_max``, the deeper ones first."""
+    if f_max < 1:
+        raise ValueError(f"no sweep fits one launch (f_max={f_max})")
+    n = -(-fuse // f_max)
+    q, extra = divmod(fuse, n)
+    return [q + 1] * extra + [q] * (n - extra)
+
+
+def split_fuse(sweep, u, v, fuse: int, f_max: int, fixed=(), step: int = 0):
+    """``fuse`` sequential sweeps as one call of ``sweep(u, v, fixed, off,
+    k)`` per part of :func:`fuse_parts`, k sweeps each; returns the last
+    call's (u, v).
+
+    Whole-frame sweeps (``step`` 0) hand (u, v) on. A tile sweep returns
+    the core of its halo'd input, ``step`` cells in per sweep on each side:
+    that core is the next call's input, ``off`` (the cells consumed so far
+    on each side) moves its frame origin in, and the fixed fields are cut to
+    the same window (a contiguous copy, made only between calls). Sweeps
+    are sequential, so the result is bitwise that of one call of all
+    ``fuse``."""
+    off = 0
+    for i, k in enumerate(fuse_parts(fuse, f_max)):
+        if i and step:
+            d = last * step
+            fixed = [f[..., d : f.shape[-2] - d, d : f.shape[-1] - d]
+                     .contiguous() for f in fixed]
+        u, v = sweep(u, v, fixed, off, k)
+        off += k * step
+        last = k
+    return u, v

@@ -8,10 +8,11 @@ demo solver (HornSchunckOF/hornSchunck.cpp:43-75) iterates
     u   = ub - gx * upd,   v = vb - gy * upd
 
 :func:`hs_sweeps` runs ``fuse`` of these sweeps: on a CUDA tensor through
-``csrc/hs_stencil.cu`` (one launch; the source says what bounds it on the
-H100 and how the fused design answers: each box sum is taken as column
-sums, then those summed along the row, which is the plain version's
-order), on a CPU tensor through :func:`hs_sweeps_plain`.
+``csrc/hs_stencil.cu`` (one launch of at most :func:`max_fuse` sweeps, a
+deeper block as several; the source says what bounds it on the H100 and
+how the fused design answers: each box sum is taken as column sums, then
+those summed along the row, which is the plain version's order), on a CPU
+tensor through :func:`hs_sweeps_plain`.
 :func:`horn_schunck_fused` is the whole solve in
 ``max_iterations // fuse`` launches plus one remainder launch, as
 ``horn_schunck_pallas`` runs its blocks. The TPU tiling knobs (tile
@@ -20,7 +21,9 @@ counterpart here.
 
 :func:`hs_tile_sweeps` is ``hs_tile_sweeps``, the tile body of the sharded
 solver (:mod:`tpuflow_torch.dist.solvers`): the same sweeps on one halo'd
-tile at a frame offset, through the same CUDA source.
+tile at a frame offset, through the same CUDA source (a deep block as
+several launches, each taking the last one's core:
+:func:`tpuflow_torch.kernels._build.split_fuse`).
 :func:`horn_schunck_resident` and :func:`horn_schunck_resident2` are
 ``horn_schunck_pallas_resident``/``_resident2``: the whole solve in one
 launch of ``csrc/hs_resident.cu``. ``strip`` (a Mosaic register-spill
@@ -30,6 +33,7 @@ workaround) and ``interpret`` have no counterpart.
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
@@ -99,12 +103,16 @@ def tile_for(window: int, fuse: int, name: str = "hs_tile_sweeps"
              ) -> tuple[int, int]:
     """The core one block writes for ``fuse`` sweeps: the staged tile less
     a fuse*r halo on each side. Raises if nothing is left."""
-    need = fuse * (window // 2)
-    core = (STAGE[0] - 2 * need, STAGE[1] - 2 * need)
-    if min(core) < 1:
-        raise ValueError(f"{name}: fuse={fuse} at window={window} leaves no "
-                         f"core in the {STAGE[0]}x{STAGE[1]} staged tile")
-    return core
+    return _build.core(f"{name}: fuse={fuse} at window={window}", STAGE,
+                       fuse * (window // 2))
+
+
+def max_fuse(window: int) -> int:
+    """The most sweeps one launch takes at ``window``: the deepest fuse
+    whose halo leaves a core in the staged tile (0 where one sweep's halo
+    does not: a window of 65 or more)."""
+    r = window // 2
+    return _build.max_halo(STAGE) // r if r else sys.maxsize
 
 
 def blocks_per_sm(tile: bool, window: int) -> int:
@@ -139,15 +147,34 @@ def hs_sweeps(u, v, gx, gy, gt, inv_denom, window: int = 5, fuse: int = 1):
     """``fuse`` HS Jacobi sweeps; returns new (u, v).
 
     CPU tensors take :func:`hs_sweeps_plain`; CUDA tensors (contiguous
-    float32, one shape) take one launch of the CUDA kernel, or raise.
+    float32, one shape) take ceil(fuse / max_fuse(window)) launches of the
+    CUDA kernel, or raise.
     """
-    global LAUNCHES
     _build.check_fields("hs_sweeps", u, v, gx, gy, gt, inv_denom)
     if window < 1 or window % 2 == 0 or fuse < 1:
         raise ValueError(f"hs_sweeps: need an odd window and fuse >= 1, "
                          f"got window={window}, fuse={fuse}")
     if u.device.type == "cpu":
         return hs_sweeps_plain(u, v, gx, gy, gt, inv_denom, window, fuse)
+    tile_for(window, 1, "hs_sweeps")
+    return _split_sweeps(_sweeps_launch, u, v, gx, gy, gt, inv_denom, window,
+                         fuse)
+
+
+def _split_sweeps(launch, u, v, gx, gy, gt, inv_denom, window, fuse,
+                  f_max=None):
+    """``fuse`` sweeps as ceil(fuse / f_max) calls of ``launch``, which
+    takes :func:`hs_sweeps_plain`'s arguments and runs at most ``f_max``
+    sweeps (default: :func:`max_fuse` of ``window``)."""
+    return _build.split_fuse(
+        lambda u, v, fixed, off, k: launch(u, v, *fixed, window, k),
+        u, v, fuse, f_max or max_fuse(window), (gx, gy, gt, inv_denom))
+
+
+def _sweeps_launch(u, v, gx, gy, gt, inv_denom, window, fuse):
+    """One launch of hs_sweeps_kernel (arguments as
+    :func:`hs_sweeps_plain`'s)."""
+    global LAUNCHES
     tile_for(window, fuse, "hs_sweeps")
     lib = _lib()
     h, w = u.shape
@@ -237,10 +264,10 @@ def hs_tile_sweeps(u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0: int, col0: int,
     The six fields are (th + 2*fuse*r, tw + 2*fuse*r) with halos already
     exchanged; (row0, col0) are the frame coordinates of their (0, 0) in an
     (img_h, img_w) frame. CPU tensors take :func:`hs_tile_sweeps_plain`;
-    CUDA tensors (contiguous float32) one launch of the tile kernel of
-    ``csrc/hs_stencil.cu``, or raise.
+    CUDA tensors (contiguous float32) ceil(fuse / max_fuse(window))
+    launches of the tile kernel of ``csrc/hs_stencil.cu``, each taking the
+    last one's core, or raise.
     """
-    global LAUNCHES_TILE
     _build.check_fields("hs_tile_sweeps", u_p, v_p, gx_p, gy_p, gt_p, inv_p)
     if window < 1 or window % 2 == 0 or fuse < 1:
         raise ValueError(f"hs_tile_sweeps: need an odd window and fuse >= 1, "
@@ -253,8 +280,35 @@ def hs_tile_sweeps(u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0: int, col0: int,
     if u_p.device.type == "cpu":
         return hs_tile_sweeps_plain(u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0,
                                     col0, img_h, img_w, window, fuse)
+    tile_for(window, 1)
+    return _split_tile(_tile_launch, u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0,
+                       col0, img_h, img_w, window, fuse)
+
+
+def _split_tile(launch, u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0, col0, img_h,
+                img_w, window, fuse, f_max=None):
+    """``fuse`` sweeps on one halo'd tile as ceil(fuse / f_max) calls of
+    ``launch``, which takes :func:`hs_tile_sweeps_plain`'s arguments and
+    runs at most ``f_max`` sweeps (default: :func:`max_fuse` of
+    ``window``): each call takes the last one's core, its origin moved in
+    by r per sweep run so far."""
+    return _build.split_fuse(
+        lambda u, v, fixed, off, k: launch(u, v, *fixed, row0 + off,
+                                           col0 + off, img_h, img_w, window,
+                                           k),
+        u_p, v_p, fuse, f_max or max_fuse(window), (gx_p, gy_p, gt_p, inv_p),
+        step=window // 2)
+
+
+def _tile_launch(u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0, col0, img_h, img_w,
+                 window, fuse):
+    """One launch of hs_tile_kernel (arguments as
+    :func:`hs_tile_sweeps_plain`'s); returns the core."""
+    global LAUNCHES_TILE
     tile_for(window, fuse)
     lib = _lib()
+    hh, hw = u_p.shape
+    need = fuse * (window // 2)
     u_out = u_p.new_empty((hh - 2 * need, hw - 2 * need))
     v_out = torch.empty_like(u_out)
     with torch.cuda.device(u_p.device):

@@ -9,25 +9,32 @@ updates every site with
     u  -= dEx / sup_x       (sup = Lipschitz bound, a global scalar)
 
 in Jacobi order. :func:`irls_sweeps` runs ``fuse`` sweeps: on a CUDA
-tensor through ``csrc/irls_stencil.cu`` (one launch; the source says what
-bounds it on the H100 and how the fused design answers), on a CPU tensor
-through :func:`irls_sweeps_plain`. ``sup_x``/``sup_y`` are one-element
-tensors on the fields' device, so a launch never waits for the host.
+tensor through ``csrc/irls_stencil.cu`` (one launch of at most
+:data:`MAX_FUSE` sweeps, a deeper block as several; the source says what
+bounds it on the H100 and how its design answers: each edge's term
+computed once and added, negated, at the far end, which is bitwise the
+plain version's per-neighbour sum since the term is antisymmetric to the
+last bit), on a CPU tensor through :func:`irls_sweeps_plain`.
+``sup_x``/``sup_y`` are one-element tensors on the fields' device, so a
+launch never waits for the host.
 Energy checks and early stopping stay outside
 (:mod:`tpuflow_torch.solvers.black_anandan_fast`).
 
 :func:`irls_tile_sweeps` is ``irls_tile_sweeps``, the tile body of the
 sharded IRLS level (:mod:`tpuflow_torch.dist.solvers`): the same sweeps
-on one halo'd tile at a frame offset, through the same CUDA source.
+on one halo'd tile at a frame offset, through the same CUDA source and
+sweep body.
 
 :func:`irls_gated_sweeps` is the flagship refinement's sweep
 (``irls_gated_sweep_pallas``, OpticalFlow_BlockMatching.cpp:465-514): the
 same update with each neighbour term gated by same-region labels and
 weighted by the direction coherence 0.5 * (1 + cos(u, u_nbr)), batched
 over reference directions; CUDA tensors take ``csrc/irls_gated.cu``, which
-computes each edge's term once and adds it, negated, at the far end (the
-term is antisymmetric to the last bit, so this is bitwise the plain
-version's per-neighbour sum).
+computes each edge's term once in the same way.
+
+A block of sweeps deeper than one launch takes runs as several launches
+(:func:`tpuflow_torch.kernels._build.split_fuse`): the sweeps are
+sequential, so the result is bitwise that of one.
 """
 
 from __future__ import annotations
@@ -44,44 +51,72 @@ from tpuflow_torch.kernels import _build
 LAUNCHES = 0
 LAUNCHES_TILE = 0
 LAUNCHES_GATED = 0
-# Core tile of one block of csrc/irls_stencil.cu (irls_sweeps and
-# irls_tile_sweeps) and its thread count. The shared tile is the core
-# plus a fuse-pixel halo on each side: 7 float fields, so
-# 7 * 4 * (TILE_H + 2*fuse) * (TILE_W + 2*fuse) bytes.
-# Chosen by a sweep of tiles and threads at fuse 16 on the H100 (PERF.md).
-TILE_H = 32
-TILE_W = 32
-THREADS = 512
-
-# The gated kernel's staged tile (rows, columns) and threads per block, as
-# csrc/irls_gated.cu compiles them: u, v and the four edge terms of the
-# tile in shared memory (6 float fields), the gate bits in the threads'
-# registers. A block writes the tile less a fuse-pixel halo on each side.
-# Chosen by a sweep of staged tiles on the H100 (PERF.md).
+# The staged tiles (rows, columns) and threads per block of
+# csrc/irls_stencil.cu (irls_sweeps and irls_tile_sweeps: WIDE, and
+# NARROW, which its launcher takes where WIDE's blocks would fill a
+# fraction of the card) and of csrc/irls_gated.cu, as the sources compile
+# them: u, v and the four edge terms of the tile in shared memory (6 float
+# fields), the frame or gate bits in the threads' registers. A block
+# writes the tile less a fuse-pixel halo on each side. Chosen by timing
+# staged tiles on the H100 (PERF.md; scripts/irls_stage_variants.py).
+STAGE = (72, 128)
+THREADS = 768
+NARROW_STAGE = (64, 64)
+NARROW_THREADS = 1024
 GATED_STAGE = (72, 128)
 GATED_THREADS = 768
+# The most sweeps one launch takes: the deepest fuse that leaves a core
+# (WIDE's: the launcher takes NARROW only where it leaves one).
+MAX_FUSE = _build.max_halo(STAGE)
+GATED_MAX_FUSE = _build.max_halo(GATED_STAGE)
 
 # Neighbour offsets (dx, dy), in the order the terms are summed.
 NEIGHBORS = ((-1, 0), (1, 0), (0, -1), (0, 1))
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("irls_stencil")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from
+    csrc/irls_stencil.cu."""
     lib.irls_sweeps_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4
-        + [ctypes.c_int, ctypes.c_void_p])
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
+        + [ctypes.c_void_p])
     lib.irls_sweeps_launch.restype = ctypes.c_int
     lib.irls_tile_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float] * 4
-        + [ctypes.c_int, ctypes.c_void_p])
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float] * 4
+        + [ctypes.c_void_p])
     lib.irls_tile_launch.restype = ctypes.c_int
+    lib.irls_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.irls_blocks_per_sm.restype = ctypes.c_int
     lib.irls_sweeps_error_string.argtypes = [ctypes.c_int]
     lib.irls_sweeps_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _lib() -> ctypes.CDLL:
+    return _bind(_build.load("irls_stencil"))
+
+
+def stage_core(fuse: int) -> tuple[int, int]:
+    """The core one block of csrc/irls_stencil.cu on its WIDE stage writes
+    at ``fuse``. Raises if nothing is left (beyond :data:`MAX_FUSE`)."""
+    return _build.core("irls_sweeps", STAGE, fuse)
+
+
 def smem_bytes(fuse: int) -> int:
-    return 7 * 4 * (TILE_H + 2 * fuse) * (TILE_W + 2 * fuse)
+    """u, v and the four edge terms of the WIDE staged tile: the same at
+    every fuse :func:`stage_core` accepts."""
+    stage_core(fuse)
+    return 6 * 4 * STAGE[0] * STAGE[1]
+
+
+def blocks_per_sm(tile: bool, narrow: bool = False) -> int:
+    """Blocks of the sweeps (``tile`` False) or the tile kernel on the WIDE
+    or the NARROW stage one SM of the current card holds at once (CUDA's
+    occupancy calculator)."""
+    lib = _lib()
+    n = lib.irls_blocks_per_sm(int(tile), int(narrow))
+    _build.check_launch(lib, "irls_sweeps", -n if n < 0 else 0)
+    return n
 
 
 def neighbor_masks(row0: int, col0: int, hh: int, hw: int, img_h: int,
@@ -126,20 +161,38 @@ def irls_sweeps(u, v, gx, gy, it, sup_x, sup_y, fuse: int,
 
     CPU tensors take :func:`irls_sweeps_plain`; CUDA tensors (contiguous
     float32 fields of one shape, one-element float32 ``sup_x``/``sup_y``
-    on the same device) take one launch of the CUDA kernel, or raise.
+    on the same device) take ceil(fuse / MAX_FUSE) launches of the CUDA
+    kernel (one up to :data:`MAX_FUSE`), or raise.
     """
-    global LAUNCHES
     _build.check_fields("irls_sweeps", u, v, gx, gy, it)
     if fuse < 1:
         raise ValueError(f"irls_sweeps: need fuse >= 1, got {fuse}")
     _check_sups("irls_sweeps", u, sup_x, sup_y)
+    consts = (lambda_d, lambda_s, sigma_d, sigma_s)
     if u.device.type == "cpu":
         return irls_sweeps_plain(u, v, gx, gy, it, sup_x, sup_y, fuse,
-                                 lambda_d, lambda_s, sigma_d, sigma_s)
-    smem = smem_bytes(fuse)
-    if smem > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"irls_sweeps: fuse={fuse} needs {smem} B of shared "
-                         f"memory per block (> {_build.MAX_SMEM_BYTES})")
+                                 *consts)
+    return _split_sweeps(_sweeps_launch, u, v, gx, gy, it, sup_x, sup_y, fuse,
+                         *consts)
+
+
+def _split_sweeps(launch, u, v, gx, gy, it, sup_x, sup_y, fuse, *consts,
+                  f_max=MAX_FUSE):
+    """``fuse`` sweeps as ceil(fuse / f_max) calls of ``launch``, which
+    takes :func:`irls_sweeps_plain`'s arguments and runs at most ``f_max``
+    sweeps."""
+    return _build.split_fuse(
+        lambda u, v, fixed, off, k: launch(u, v, *fixed, sup_x, sup_y, k,
+                                           *consts),
+        u, v, fuse, f_max, (gx, gy, it))
+
+
+def _sweeps_launch(u, v, gx, gy, it, sup_x, sup_y, fuse, lambda_d, lambda_s,
+                   sigma_d, sigma_s):
+    """One launch of irls_sweeps_kernel (arguments as
+    :func:`irls_sweeps_plain`'s)."""
+    global LAUNCHES
+    stage_core(fuse)
     lib = _lib()
     h, w = u.shape
     u_out = torch.empty_like(u)
@@ -148,8 +201,8 @@ def irls_sweeps(u, v, gx, gy, it, sup_x, sup_y, fuse: int,
         rc = lib.irls_sweeps_launch(
             u.data_ptr(), v.data_ptr(), gx.data_ptr(), gy.data_ptr(),
             it.data_ptr(), sup_x.data_ptr(), sup_y.data_ptr(),
-            u_out.data_ptr(), v_out.data_ptr(), h, w, TILE_H, TILE_W, fuse,
-            lambda_d, lambda_s, sigma_d, sigma_s, THREADS,
+            u_out.data_ptr(), v_out.data_ptr(), h, w, fuse, lambda_d,
+            lambda_s, sigma_d, sigma_s,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, "irls_sweeps", rc)
     LAUNCHES += 1
@@ -210,10 +263,9 @@ def irls_tile_sweeps(u_p, v_p, gx_p, gy_p, it_p, sup_x, sup_y, row0: int,
     (img_h, img_w) frame, and the core must lie in the frame (as a mesh
     tile does). CPU tensors take :func:`irls_tile_sweeps_plain`; CUDA
     tensors (contiguous float32, one-element float32 ``sup_x``/``sup_y``
-    on the same device) one launch of the tile kernel of
-    ``csrc/irls_stencil.cu``, or raise.
+    on the same device) ceil(fuse / MAX_FUSE) launches of the tile kernel
+    of ``csrc/irls_stencil.cu``, each taking the last one's core, or raise.
     """
-    global LAUNCHES_TILE
     _build.check_fields("irls_tile_sweeps", u_p, v_p, gx_p, gy_p, it_p)
     if fuse < 1:
         raise ValueError(f"irls_tile_sweeps: need fuse >= 1, got {fuse}")
@@ -227,24 +279,45 @@ def irls_tile_sweeps(u_p, v_p, gx_p, gy_p, it_p, sup_x, sup_y, row0: int,
             or col0 + fuse + tw > img_w):
         raise ValueError(f"irls_tile_sweeps: the core at ({row0 + fuse}, "
                          f"{col0 + fuse}) leaves the {img_h}x{img_w} frame")
+    consts = (lambda_d, lambda_s, sigma_d, sigma_s)
     if u_p.device.type == "cpu":
         return irls_tile_sweeps_plain(u_p, v_p, gx_p, gy_p, it_p, sup_x,
                                       sup_y, row0, col0, img_h, img_w, fuse,
-                                      lambda_d, lambda_s, sigma_d, sigma_s)
-    smem = smem_bytes(fuse)
-    if smem > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"irls_tile_sweeps: fuse={fuse} needs {smem} B of "
-                         f"shared memory per block (> {_build.MAX_SMEM_BYTES})")
+                                      *consts)
+    return _split_tile(_tile_launch, u_p, v_p, gx_p, gy_p, it_p, sup_x, sup_y,
+                       row0, col0, img_h, img_w, fuse, *consts)
+
+
+def _split_tile(launch, u_p, v_p, gx_p, gy_p, it_p, sup_x, sup_y, row0, col0,
+                img_h, img_w, fuse, *consts, f_max=MAX_FUSE):
+    """``fuse`` sweeps on one halo'd tile as ceil(fuse / f_max) calls of
+    ``launch``, which takes :func:`irls_tile_sweeps_plain`'s arguments and
+    runs at most ``f_max`` sweeps: each call takes the last one's core,
+    its origin moved in by the sweeps run so far."""
+    return _build.split_fuse(
+        lambda u, v, fixed, off, k: launch(
+            u, v, *fixed, sup_x, sup_y, row0 + off, col0 + off, img_h, img_w,
+            k, *consts),
+        u_p, v_p, fuse, f_max, (gx_p, gy_p, it_p), step=1)
+
+
+def _tile_launch(u_p, v_p, gx_p, gy_p, it_p, sup_x, sup_y, row0, col0,
+                 img_h, img_w, fuse, lambda_d, lambda_s, sigma_d, sigma_s):
+    """One launch of irls_tile_kernel (arguments as
+    :func:`irls_tile_sweeps_plain`'s); returns the core."""
+    global LAUNCHES_TILE
+    stage_core(fuse)
     lib = _lib()
-    u_out = u_p.new_empty((th, tw))
+    hh, hw = u_p.shape
+    u_out = u_p.new_empty((hh - 2 * fuse, hw - 2 * fuse))
     v_out = torch.empty_like(u_out)
     with torch.cuda.device(u_p.device):
         rc = lib.irls_tile_launch(
             u_p.data_ptr(), v_p.data_ptr(), gx_p.data_ptr(), gy_p.data_ptr(),
             it_p.data_ptr(), sup_x.data_ptr(), sup_y.data_ptr(),
             u_out.data_ptr(), v_out.data_ptr(), hh, hw, int(row0), int(col0),
-            img_h, img_w, TILE_H, TILE_W, fuse, lambda_d, lambda_s, sigma_d,
-            sigma_s, THREADS, torch.cuda.current_stream().cuda_stream)
+            img_h, img_w, fuse, lambda_d, lambda_s, sigma_d, sigma_s,
+            torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, "irls_sweeps", rc)
     LAUNCHES_TILE += 1
     return u_out, v_out
@@ -264,15 +337,9 @@ def _lib_gated() -> ctypes.CDLL:
 
 
 def gated_core(fuse: int) -> tuple[int, int]:
-    """The core one block of the gated kernel writes at ``fuse``: the
-    staged tile less a fuse-pixel halo on each side. Raises if nothing is
-    left."""
-    core = (GATED_STAGE[0] - 2 * fuse, GATED_STAGE[1] - 2 * fuse)
-    if min(core) < 1:
-        raise ValueError(f"irls_gated_sweeps: fuse={fuse} leaves no core "
-                         f"in the {GATED_STAGE[0]}x{GATED_STAGE[1]} staged "
-                         "tile")
-    return core
+    """The core one block of the gated kernel writes at ``fuse``. Raises
+    if nothing is left (beyond :data:`GATED_MAX_FUSE`)."""
+    return _build.core("irls_gated_sweeps", GATED_STAGE, fuse)
 
 
 def smem_bytes_gated(fuse: int) -> int:
@@ -319,9 +386,9 @@ def irls_gated_sweeps(u, v, gx, gy, it, labels, sup_x, sup_y, fuse: int,
     direction; ``gx``, ``gy``, ``labels``: (H, W), shared. CPU tensors take
     :func:`irls_gated_sweeps_plain`; CUDA tensors (contiguous float32
     fields, int32 labels, one-element float32 ``sup_x``/``sup_y`` on the
-    same device) take one launch of the CUDA kernel, or raise.
+    same device) take ceil(fuse / GATED_MAX_FUSE) launches of the CUDA
+    kernel, or raise.
     """
-    global LAUNCHES_GATED
     if u.shape != v.shape or u.shape != it.shape or u.dim() not in (2, 3):
         raise ValueError("irls_gated_sweeps: u, v, it must share an (H, W) "
                          f"or (B, H, W) shape, got {tuple(u.shape)}, "
@@ -349,6 +416,26 @@ def irls_gated_sweeps(u, v, gx, gy, it, labels, sup_x, sup_y, fuse: int,
     if labels.dtype != torch.int32 or not labels.is_contiguous():
         raise TypeError("irls_gated_sweeps: the CUDA kernel takes contiguous "
                         f"int32 labels, got {labels.dtype}")
+    return _split_gated(_gated_launch, u, v, gx, gy, it, labels, sup_x, sup_y,
+                        fuse, lambda_d, lambda_s, sigma_d, sigma_s)
+
+
+def _split_gated(launch, u, v, gx, gy, it, labels, sup_x, sup_y, fuse,
+                 *consts, f_max=GATED_MAX_FUSE):
+    """``fuse`` gated sweeps as ceil(fuse / f_max) calls of ``launch``,
+    which takes :func:`irls_gated_sweeps_plain`'s arguments and runs at
+    most ``f_max`` sweeps."""
+    return _build.split_fuse(
+        lambda u, v, fixed, off, k: launch(u, v, *fixed, sup_x, sup_y, k,
+                                           *consts),
+        u, v, fuse, f_max, (gx, gy, it, labels))
+
+
+def _gated_launch(u, v, gx, gy, it, labels, sup_x, sup_y, fuse, lambda_d,
+                  lambda_s, sigma_d, sigma_s):
+    """One launch of irls_gated_kernel (arguments as
+    :func:`irls_gated_sweeps_plain`'s)."""
+    global LAUNCHES_GATED
     gated_core(fuse)
     lib = _lib_gated()
     h, w = gx.shape
