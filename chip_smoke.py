@@ -11,8 +11,9 @@ Phases, each printing one line of its own numbers:
    nvcc each, all started together, into ``build/tpuflow_torch``) and
    reports seconds and ptxas usage (registers, spills), which the rows of
    ``hs_sweeps``, ``irls_sweeps``, ``irls_gated_sweeps``,
-   ``hs_tile_sweeps`` and ``irls_tile_sweeps`` log beside the blocks per
-   SM that CUDA's occupancy calculator gives their launch.
+   ``hs_tile_sweeps``, ``irls_tile_sweeps``, ``sep_conv2d_valid`` and the
+   resident pair log beside the blocks per SM that CUDA's occupancy
+   calculator gives their launch.
 3. kernels — each of the eleven kernels against its plain PyTorch version
    on the card, on float32 inputs from a numpy seed, with both versions'
    device times (``cuda_ms(..., device_only=True)``), the least time the
@@ -24,8 +25,9 @@ Phases, each printing one line of its own numbers:
    fuse and at a fuse that leaves a remainder) and both at 375x1242 (the
    ragged KITTI size), HS also at 3x3 there; IRLS 512 sweeps at fuse 16 at
    each level of BA's pyramid, where the launcher picks its staged tile
-   per level (bitwise, launches counted, device ms per level); sepconv at 1080x1920 with 48
-   and 17 taps and at 375x1242 with 64; poly expansion at 1080x1920 with
+   per level (bitwise, launches counted, device ms per level); sepconv at
+   1080x1920 with 48, 17 and 15 taps and at 375x1242 with 64 (blocks per
+   SM, registers and spills beside each); poly expansion at 1080x1920 with
    n = 8 and 5 and at 375x1242; blur-solve at 1080x1920 with winsize 48 and
    at 375x1242 with 64; the gated IRLS 256 sweeps at 376x1240 and
    375x1242, fuse 16 and 15, one and two directions, on the flagship
@@ -38,7 +40,13 @@ Phases, each printing one line of its own numbers:
    stitched, bitwise equal to hs_sweeps / irls_sweeps on the whole frame;
    the IRLS tile also at fuse 15 and at 375x1242, bitwise;
    the resident HS pair at 1080x1920, 100 sweeps (and 99, which ends in
-   the second buffer), resident2 beside ``horn_schunck_fused``. Blocks
+   the other buffer), resident2 beside ``horn_schunck_fused``, with blocks
+   per SM, registers and spills, and both bitwise in one launch each at
+   windows 3, 5 and 65 (the wide form), at 1080x1920 and 375x1242, 100 and
+   99 sweeps. Windows whose halo leaves no core in hs_stencil's staged
+   tile, in the wide form (two launches a sweep): ``hs_sweeps`` at windows
+   65 and 129 and ``hs_tile_sweeps`` on a 2x2 cut at 65, 3 sweeps at
+   1080x1920, bitwise with their launch counts and ms per sweep. Blocks
    deeper than one launch takes, which the wrappers run as several
    launches: ``hs_sweeps`` and ``hs_tile_sweeps`` at window 5, fuse 16 at
    1080x1920 (and the tile's 2x2 cut against ``hs_sweeps``),
@@ -49,7 +57,8 @@ Phases, each printing one line of its own numbers:
    with every launch counter set to 0 just before it and read just after;
    each counter must show its kernel ran exactly as often as that path
    launches it. The paths: ``solvers.horn_schunck`` at 1080x1920 (100
-   iterations, 5x5, alpha 1); ``optical_flow_pyramid_fast`` at 376x1240
+   iterations, 5x5, alpha 1) and again at window 65 (10 iterations, the
+   wide form); ``optical_flow_pyramid_fast`` at 376x1240
    (5 levels, 512 sweeps per level, fuse 16); the four Farneback configs
    of bench.py (streaming, pair demo, multi-level demo on small and on
    large motion) through ``solvers.calc_optical_flow_farneback``; the
@@ -68,8 +77,9 @@ Phases, each printing one line of its own numbers:
    and agree with the same calls on float32 CPU copies (which take the
    plain versions); the BA block counts per level agree; end-to-end
    times on the card beside the chip host's CPU time, and one profiler
-   frame of the BA pyramid (its IRLS kernel time per frame, both
-   stages). The flagship
+   frame each of the BA pyramid (its IRLS kernel time per frame, both
+   stages) and of Farneback's demo3 at 1080x1920 (90 sepconv launches).
+   The flagship
    reports its region count, the EPE of its block-matching field against
    the known pan, the compensation PSNR against the unmoved frame and ms
    per pair; its CPU check is the same three-frame run on a 96x160 crop
@@ -136,6 +146,8 @@ FB_CASES = (("stream_1080p", FB_STREAM, "1080p"),
             ("demo_kitti", FB_DEMO, "kitti"),
             ("demo3_1080p", FB_DEMO3, "1080p"),
             ("demo3_largemotion_1080p", FB_DEMO3, "largemotion"))
+# The config whose frame phase fb profiles: the most sepconv launches.
+FB_PROFILED = "demo3_1080p"
 # dense_flow_stream: SyntheticSource frames at the demo's working size.
 STREAM_FRAMES, STREAM_WH = 4, (640, 480)
 # The flagship (optical_flow_block_matching's defaults) on a pan of
@@ -151,6 +163,16 @@ GATED_SWEEPS, GATED_FUSE = 256, 16
 # Blocks deeper than one launch of the kernel takes (HS at window 5: 15;
 # the IRLS kernels: 35), which the wrappers split into launches.
 DEEP_HS_FUSE, DEEP_IRLS_FUSE = 16, 40
+# Windows whose halo leaves no core in hs_stencil's staged tile, which the
+# wrappers run in the wide form (two launches a sweep): the kernel checks'
+# sweeps and the solver's iterations at them.
+WIDE_WINDOWS, WIDE_SWEEPS, WIDE_ITERS = (65, 129), 3, 10
+# sepconv's tap counts on the main paths: Farneback's box (48 stream, 64
+# demo, 15 demo3's winsize) and the pyramid blur (17 taps).
+SEP_TAPS = ((HS_SHAPE, 48), (HS_SHAPE, 17), (HS_SHAPE, 15),
+            (RAGGED_SHAPE, 64))
+# The resident pair's bitwise checks: windows, frames and sweeps.
+RESIDENT_WINDOWS, RESIDENT_ITERS = (3, 5, 65), (HS_ITERS, HS_ITERS - 1)
 MS_R, MS_KI = 20, 16.0 / 255.0
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -665,23 +687,7 @@ def phase_kernels(dev) -> dict:
         torch.cuda.synchronize()
     irls_levels(dev)
 
-    # sepconv: Farneback's box (48, 64 uniform taps) and the poly taps (17).
-    # Library call: one 2-D correlation with the outer product ky x kx.
-    for shape, n in ((HS_SHAPE, 48), (HS_SHAPE, 17), (RAGGED_SHAPE, 64)):
-        rng = np.random.default_rng(n)
-        padded, = f32(dev, rng.uniform(0, 255, (shape[0] + n - 1,
-                                                shape[1] + n - 1)))
-        box = np.full(n, 1.0 / n)
-        gauss = np.exp(-np.linspace(-2.0, 2.0, n) ** 2)
-        gauss /= gauss.sum()
-        ky, kx = (sepconv.host_taps(t, torch.float32) for t in (box, gauss))
-        k2, = f32(dev, np.outer(ky, kx)[None, None])
-        kernel_row(out, "sep_conv2d_valid", shape,
-                   lambda: sepconv.sep_conv2d_valid(padded, box, gauss),
-                   lambda: sepconv.sep_conv2d_valid_plain(padded, ky, kx),
-                   sep_bound(*padded.shape, n, n),
-                   library=lambda: F.conv2d(padded[None, None], k2),
-                   taps=(n, n))
+    sepconv_rows(dev, out)
 
     # Library call: one correlation with five output channels, each a G^-1
     # row folded into the three moment tap sets.
@@ -723,7 +729,37 @@ def phase_kernels(dev) -> dict:
     phase_kernels_flagship(dev, out)
     phase_kernels_dist(dev, out)
     phase_kernels_deep(dev)
+    phase_kernels_wide(dev)
     return out
+
+
+def sepconv_rows(dev, out, usage: bool = True) -> None:
+    """``sep_conv2d_valid`` at SEP_TAPS (a box of ky and a Gaussian of kx)
+    against its plain version, timed beside one F.conv2d with the outer
+    product ky x kx (the library call); ``usage`` adds blocks per SM and
+    ptxas's registers and spills."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpuflow_torch.kernels import sepconv
+
+    for shape, n in SEP_TAPS:
+        rng = np.random.default_rng(n)
+        padded, = f32(dev, rng.uniform(0, 255, (shape[0] + n - 1,
+                                                shape[1] + n - 1)))
+        box = np.full(n, 1.0 / n)
+        gauss = np.exp(-np.linspace(-2.0, 2.0, n) ** 2)
+        gauss /= gauss.sum()
+        ky, kx = (sepconv.host_taps(t, torch.float32) for t in (box, gauss))
+        k2, = f32(dev, np.outer(ky, kx)[None, None])
+        kernel_row(out, "sep_conv2d_valid", shape,
+                   lambda: sepconv.sep_conv2d_valid(padded, box, gauss),
+                   lambda: sepconv.sep_conv2d_valid_plain(padded, ky, kx),
+                   sep_bound(*padded.shape, n, n),
+                   library=lambda: F.conv2d(padded[None, None], k2),
+                   taps=(n, n), **(kernel_usage(
+                       f"sep_conv2d_valid_kernelILi{n}ELi{n}E",
+                       sepconv.blocks_per_sm(n, n)) if usage else {}))
 
 
 def ba_level_shapes() -> list[tuple[int, int]]:
@@ -1077,12 +1113,29 @@ def phase_kernels_dist(dev, out) -> None:
                        shape=shape, sweeps=BA_ITER_MAX, fuse=fuse)
     torch.cuda.synchronize()
 
+    resident_rows(dev, out)
+    resident_checks(dev)
+
+
+def resident_rows(dev, out, usage: bool = True) -> None:
+    """The resident HS pair at 1080x1920, window 5, HS_ITERS sweeps (and
+    one fewer, which ends in the other buffer), against their plain
+    versions and timed, resident2 beside ``horn_schunck_fused``; ``usage``
+    adds blocks per SM and ptxas's registers and spills."""
+    import torch
+
+    from tpuflow_torch.kernels import hs_stencil
+
     prev, nxt = f32(dev, *frames_1080p())
     for name, fn, plain, recip in (
             ("horn_schunck_resident", hs_stencil.horn_schunck_resident,
              hs_stencil.horn_schunck_resident_plain, False),
             ("horn_schunck_resident2", hs_stencil.horn_schunck_resident2,
              hs_stencil.horn_schunck_resident2_plain, True)):
+        what = kernel_usage(
+            f"hs_resident_kernelILi{HS_WINDOW // 2}ELb{int(not recip)}E",
+            hs_stencil.blocks_per_sm_resident(HS_WINDOW, recip)) \
+            if usage else {}
         for iters in (HS_ITERS, HS_ITERS - 1):
             kernel_row(out, name, HS_SHAPE,
                        lambda fn=fn, iters=iters: fn(prev, nxt, HS_WINDOW,
@@ -1090,7 +1143,7 @@ def phase_kernels_dist(dev, out) -> None:
                        lambda plain=plain, iters=iters: plain(
                            prev, nxt, HS_WINDOW, iters, HS_ALPHA),
                        resident_bound(HS_SHAPE, iters, HS_WINDOW, recip),
-                       sweeps=iters)
+                       sweeps=iters, **what)
     fused = hs_stencil.horn_schunck_fused(prev, nxt, HS_WINDOW, HS_ITERS,
                                           HS_ALPHA)
     res2 = hs_stencil.horn_schunck_resident2(prev, nxt, HS_WINDOW, HS_ITERS,
@@ -1100,6 +1153,72 @@ def phase_kernels_dist(dev, out) -> None:
     log("kernels", kernel="horn_schunck_resident2", shape=HS_SHAPE,
         sweeps=HS_ITERS, max_abs_err_vs_horn_schunck_fused=err)
     torch.cuda.synchronize()
+
+
+def resident_checks(dev) -> None:
+    """The resident pair bitwise its plain versions in one launch each, at
+    RESIDENT_WINDOWS (window 65 in the wide form), at 1080x1920 and
+    375x1242, RESIDENT_ITERS sweeps."""
+    import torch
+
+    from tpuflow_torch.kernels import hs_stencil
+
+    for shape in (HS_SHAPE, RAGGED_SHAPE):
+        rng = np.random.default_rng(shape[0])
+        prev = rng.uniform(0, 255, shape)
+        frames = f32(dev, prev, np.roll(prev, 2, axis=1)
+                     + rng.normal(0, 1, shape))
+        for window in RESIDENT_WINDOWS:
+            for iters in RESIDENT_ITERS:
+                for fn, plain, counter in (
+                        (hs_stencil.horn_schunck_resident,
+                         hs_stencil.horn_schunck_resident_plain,
+                         "LAUNCHES_RESIDENT"),
+                        (hs_stencil.horn_schunck_resident2,
+                         hs_stencil.horn_schunck_resident2_plain,
+                         "LAUNCHES_RESIDENT2")):
+                    exact_launches(
+                        fn.__name__, hs_stencil, counter, 1,
+                        lambda fn=fn: fn(*frames, window, iters, HS_ALPHA),
+                        plain(*frames, window, iters, HS_ALPHA),
+                        shape=shape, window=window, sweeps=iters,
+                        plan=hs_stencil.resident_plan(window, iters))
+        torch.cuda.synchronize()
+
+
+def phase_kernels_wide(dev) -> None:
+    """Windows whose halo leaves no core in the staged tile, in the wide
+    form: ``hs_sweeps`` at WIDE_WINDOWS and ``hs_tile_sweeps`` on a 2x2 cut
+    at the first, WIDE_SWEEPS sweeps at 1080x1920, each bitwise the plain
+    whole-frame sweeps in two launches a sweep (per tile), with the device
+    ms per sweep of the whole-frame form."""
+    import torch
+
+    from tpuflow_torch.kernels import hs_stencil
+
+    u, v, *fixed = f32(dev, *hs_fields(HS_SHAPE, 8))
+    for window in WIDE_WINDOWS:
+        whole = hs_stencil.hs_sweeps_plain(u, v, *fixed, window, WIDE_SWEEPS)
+        what = dict(shape=HS_SHAPE, window=window, sweeps=WIDE_SWEEPS)
+
+        def run(window=window):
+            return hs_stencil.hs_sweeps(u, v, *fixed, window, WIDE_SWEEPS)
+
+        exact_launches("hs_sweeps", hs_stencil, "LAUNCHES", 2 * WIDE_SWEEPS,
+                       run, whole, **what)
+        log("kernels", kernel="hs_sweeps", **what,
+            ms_per_sweep=cuda_ms(run, device_only=True) / WIDE_SWEEPS)
+        if window == WIDE_WINDOWS[0]:
+            exact_launches(
+                "hs_tile_sweeps", hs_stencil, "LAUNCHES_TILE",
+                4 * 2 * WIDE_SWEEPS,
+                lambda: tile_chain(hs_stencil.hs_tile_sweeps, u, v, fixed,
+                                   HS_SHAPE, WIDE_SWEEPS, WIDE_SWEEPS,
+                                   window // 2, True, (),
+                                   lambda k: (window, k)),
+                whole, cut="2x2 vs hs_sweeps_plain", **what)
+        del whole
+        torch.cuda.synchronize()
 
 
 # -- the main paths, each with its launch counts ------------------------------
@@ -1217,6 +1336,11 @@ def phase_main(dev):
         "horn_schunck", lambda: solvers.horn_schunck(
             *hs_frames, HS_WINDOW, HS_ITERS, HS_ALPHA),
         {"hs_sweeps": math.ceil(HS_ITERS / hs_stencil.DEFAULT_FUSE)}, totals)
+    wide = WIDE_WINDOWS[0]
+    hs_wide = counted(
+        f"horn_schunck_window{wide}", lambda: solvers.horn_schunck(
+            *hs_frames, wide, WIDE_ITERS, HS_ALPHA),
+        {"hs_sweeps": 2 * WIDE_ITERS}, totals)
     resident = [counted(name, lambda fn=fn: fn(*hs_frames, HS_WINDOW, HS_ITERS,
                                                HS_ALPHA), {name: 1}, totals)
                 for name, fn in (
@@ -1271,7 +1395,7 @@ def phase_main(dev):
         lambda _: {"mean_shift_filter": 1,
                    "irls_gated_sweeps": bm_blocks[1]}, totals)
     log("main", bm_blocks=bm_blocks)
-    return (totals, (hs_frames, hs_flow, resident),
+    return (totals, (hs_frames, hs_flow, resident, hs_wide),
             (ba_frames, ba_flow, blocks),
             fb_runs, (frames, stream), (bm_frames, (out1, out2), state))
 
@@ -1293,7 +1417,7 @@ def bm_sequence(frames, device, **kw):
     return (out1, out2), state
 
 
-def phase_hs(frames, flow, resident) -> None:
+def phase_hs(frames, flow, resident, wide) -> None:
     import torch
 
     from tpuflow_torch import solvers
@@ -1324,6 +1448,18 @@ def phase_hs(frames, flow, resident) -> None:
         ms = cuda_ms(lambda: fn(*frames, HS_WINDOW, HS_ITERS, HS_ALPHA))
         log("hs", path=name, shape=HS_SHAPE, max_abs_err_vs_horn_schunck=err,
             card_ms_per_frame=ms)
+    window = WIDE_WINDOWS[0]
+    ref = solvers.horn_schunck(*cpu, window, WIDE_ITERS, HS_ALPHA)
+    if not all(bool(torch.isfinite(f).all()) and f.shape == HS_SHAPE
+               for f in wide):
+        raise AssertionError(f"HS window {window}: flow is not finite of "
+                             f"shape {HS_SHAPE}")
+    err = check_close(f"horn_schunck window {window} card vs CPU",
+                      list(zip(wide, ref)), PATH_TOL)
+    log("hs", shape=HS_SHAPE, window=window, iterations=WIDE_ITERS,
+        max_abs_err_vs_cpu=err, max_abs_u=float(wide[0].abs().max()),
+        card_ms_per_frame=cuda_ms(lambda: solvers.horn_schunck(
+            *frames, window, WIDE_ITERS, HS_ALPHA)))
 
 
 def phase_ba(frames, flow, blocks) -> None:
@@ -1389,6 +1525,9 @@ def phase_fb(runs, stream) -> None:
             max_abs_err_vs_cpu=err, max_abs_u=float(flow[0].abs().max()),
             card_ms_per_frame=ms, card_fps=1e3 / ms,
             chip_host_cpu_f32_ms_per_frame=cpu_ms)
+        if name == FB_PROFILED:
+            profile_frame("fb", lambda: fb_call(frames, cfg, **kw),
+                          config=name)
 
     frames, out = stream
     if len(out) != STREAM_FRAMES - 1:

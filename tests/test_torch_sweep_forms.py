@@ -22,7 +22,12 @@ are the plain versions' arithmetic:
   edge subtracted, the right added, the upper subtracted, the down added,
   as ``csrc/irls_stencil.cu`` computes it on a staged tile) equals
   ``irls_sweeps_plain`` and ``irls_tile_sweeps_plain``, on fields with
-  exact zeros and equal neighbours, where a wrong sign of zero would show.
+  exact zeros and equal neighbours, where a wrong sign of zero would show;
+- (f) a test-local emulation of ``csrc/sepconv.cu``'s register-blocked
+  passes (blocks of TILE_H x TILE_W outputs, ACC accumulators a thread fed
+  a streamed column, then a streamed row, the inputs taken ACC at a time
+  as the kernel's registers hold them) equals ``sep_conv2d_valid_plain``,
+  and every tap count up to MAX_TAPS fits a block.
 """
 
 import re
@@ -33,7 +38,7 @@ import pytest
 import torch
 
 from tpuflow_torch.core import borders as bd
-from tpuflow_torch.kernels import hs_stencil, irls_stencil
+from tpuflow_torch.kernels import hs_stencil, irls_stencil, sepconv
 from tpuflow_torch.kernels import _build
 from tpuflow_torch.kernels._build import MAX_SMEM_BYTES
 from tpuflow_torch.solvers import bm_flow
@@ -469,3 +474,102 @@ def test_irls_edge_form_tile_equals_plain(kind, fuse, origin):
     assert want[0].shape == core
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _sliding_taps(k, n, load, acc_n):
+    """csrc/sepconv.cu's sliding_taps on tensors: acc[j] = sum_{d < n}
+    k[d] * load(j + d), each sum from tap 0 in tap order, the inputs
+    taken acc_n at a time into cur/nxt/pre as the kernel's registers."""
+    inputs = acc_n + n - 1
+    zero = torch.zeros_like(load(0))
+    cur = [load(q) for q in range(acc_n)]
+    nxt = [load(acc_n + q) if acc_n + q < inputs else zero
+           for q in range(acc_n)]
+    acc = [None] * acc_n
+    for d in range(0, n, acc_n):
+        pre = [load(d + 2 * acc_n + q) if d + 2 * acc_n + q < inputs
+               else zero for q in range(acc_n)]
+        for s in range(acc_n):
+            if d + s < n:
+                t = float(k[d + s])
+                for j in range(acc_n):
+                    x = cur[s + j] if s + j < acc_n else nxt[s + j - acc_n]
+                    p = x * t
+                    acc[j] = p if d + s == 0 else acc[j] + p
+        cur, nxt = nxt, pre
+    return acc
+
+
+def _sepconv_blocked(padded, ky, kx):
+    """csrc/sepconv.cu's two passes on every block of the grid at once:
+    blocks of TILE_H x TILE_W outputs, the first pass on the block's
+    TILE_W + nkx - 1 columns in row groups of ACC (inputs past the padded
+    image read as 0), the second along each row in column groups of ACC."""
+    th, tw, r = sepconv.TILE_H, sepconv.TILE_W, sepconv.ACC
+    hp, wp = padded.shape
+    nky, nkx = len(ky), len(kx)
+    ho, wo = hp - nky + 1, wp - nkx + 1
+    nby, nbx = -(-ho // th), -(-wo // tw)
+    ncols = tw + nkx - 1
+    p = torch.zeros((nby * th + nky - 1, nbx * tw + nkx - 1))
+    p[:hp, :wp] = padded
+    # (row group, block column, input q, column c) for the first pass.
+    cols = p.unfold(0, r + nky - 1, r).unfold(1, ncols, tw)
+    acc = _sliding_taps(ky, nky, lambda q: cols[:, :, q, :], r)
+    rows = torch.stack(acc, 1).reshape(nby * th, nbx, ncols)
+    # (row, block column, column group, input q) for the second pass.
+    segs = rows.unfold(2, r + nkx - 1, r)
+    assert segs.shape[2] == tw // r
+    acc = _sliding_taps(kx, nkx, lambda q: segs[..., q], r)
+    out = torch.stack(acc, -1).reshape(nby * th, nbx * tw)
+    return out[:ho, :wo]
+
+
+@pytest.mark.parametrize("out_shape", [(70, 150), (3, 131)])
+@pytest.mark.parametrize("taps", [(1, 1), (15, 15), (17, 17), (48, 48),
+                                  (64, 64), (128, 128), (15, 64), (128, 3)])
+def test_sepconv_register_blocked_equals_plain(taps, out_shape):
+    """(f) The redesigned sepconv order (register accumulators fed a
+    streamed column, then a streamed row, in tap order) equals
+    sep_conv2d_valid_plain bitwise, at every main-path tap count, the
+    largest, mixed counts, and ragged sizes of one and several blocks."""
+    nky, nkx = taps
+    rng = np.random.default_rng(nky * 1000 + nkx)
+    padded = _f32(rng.uniform(0, 255, (out_shape[0] + nky - 1,
+                                       out_shape[1] + nkx - 1)))
+    ky = sepconv.host_taps(rng.normal(size=nky), torch.float32)
+    kx = sepconv.host_taps(rng.uniform(0.1, 1.0, nkx), torch.float32)
+    got = _sepconv_blocked(padded, ky, kx)
+    assert torch.equal(got, sepconv.sep_conv2d_valid_plain(padded, ky, kx))
+
+
+def test_sepconv_geometry_matches_cuda_source():
+    """(f) The wrapper's tile, threads and accumulators are the source's."""
+    c = _cu_constants("sepconv")
+    assert (c["TH"], c["TW"], c["THREADS"], c["R"]) == (
+        sepconv.TILE_H, sepconv.TILE_W, sepconv.THREADS, sepconv.ACC)
+    assert sepconv.TILE_H % sepconv.ACC == 0
+    assert sepconv.TILE_W % sepconv.ACC == 0
+
+
+@pytest.mark.parametrize("taps", range(1, sepconv.MAX_TAPS + 1))
+def test_sepconv_every_tap_count_fits(taps):
+    """(f) Every tap count up to MAX_TAPS fits one block's shared memory
+    with two blocks on an SM, and its first-pass rows have an odd pitch
+    (the second pass's 32 lanes on 32 rows hit 32 banks)."""
+    smem = sepconv.smem_bytes(taps, taps)
+    assert smem <= MAX_SMEM_BYTES
+    assert _blocks_by_arithmetic(smem, sepconv.THREADS) >= 2
+    pitch = (sepconv.TILE_W + taps - 1) | 1
+    assert pitch % 2 == 1 and pitch >= sepconv.TILE_W + taps - 1
+    assert len({(row * pitch) % 32 for row in range(32)}) == 32
+
+
+@pytest.mark.parametrize("name", ["hs_stencil", "hs_resident"])
+def test_build_hash_covers_the_shared_header(name):
+    """(d) Both HS sources include csrc/hs_block.cuh, and the bytes their
+    library's hash covers hold it, so an edited header rebuilds both."""
+    header = (CSRC / "hs_block.cuh").read_bytes()
+    src = CSRC / f"{name}.cu"
+    assert b'#include "hs_block.cuh"' in src.read_bytes()
+    assert header in _build.source_bytes(src)

@@ -14,6 +14,12 @@ run in interpret mode, as tests/test_kernels.py runs them; float64.
 - The resident pair on seeded 24x40 and 40x56 frames, 9 iterations, atol
   1e-10 as tests/test_kernels.py:223 (the jnp solver and the kernels
   associate the update differently).
+- A test-local emulation of csrc/hs_resident.cu's solve (groups of
+  RESIDENT_FUSE sweeps, each tile of the frame staged with a K*r halo and
+  swept as csrc/hs_block.cuh's hs_block; the wide form at window 65)
+  equals the resident pair's plain versions bitwise in float32 (windows
+  3, 5, 65; 7 and 8 sweeps on a 70x150 frame of 2x3 tiles), and tpuflow's
+  resident kernels in interpret mode at the shapes above, atol 1e-10.
 """
 
 import jax.numpy as jnp
@@ -199,3 +205,147 @@ def test_tile_kernel_block_fits_shared_memory(window, fuse):
     assert min(core) >= 1
     assert hs_stencil.smem_bytes(window, fuse) <= MAX_SMEM_BYTES
     assert irls_stencil.smem_bytes(16) <= MAX_SMEM_BYTES
+
+
+def _staged_sweeps(u, v, gx, gy, gt, d, y0, x0, window, k, divide):
+    """csrc/hs_block.cuh's hs_block on the whole frame: the STAGE tile whose
+    (0, 0) is frame cell (y0, x0), zero beyond the frame, k sweeps on a
+    valid region shrinking by r a sweep (column sums top to bottom from the
+    first term, then W of them from 0; cells outside the frame held at 0),
+    its core (clipped to the frame) returned with its frame origin."""
+    sh, sw = hs_stencil.STAGE
+    h, w = u.shape
+    r = window // 2
+    ys, xs = torch.arange(sh) + y0, torch.arange(sw) + x0
+    inside = (((ys >= 0) & (ys < h))[:, None]
+              & ((xs >= 0) & (xs < w))[None, :])
+    src = (slice(max(y0, 0), min(y0 + sh, h)),
+           slice(max(x0, 0), min(x0 + sw, w)))
+    dst = (slice(src[0].start - y0, src[0].stop - y0),
+           slice(src[1].start - x0, src[1].stop - x0))
+
+    def stage(f):
+        out = torch.zeros((sh, sw), dtype=f.dtype)
+        out[dst] = f[src]
+        return out
+
+    s_u, s_v, a, b, c, dd = (stage(f) for f in (u, v, gx, gy, gt, d))
+    for t in range(1, k + 1):
+        lo = t * r
+        rows, ccols = slice(lo, sh - lo), slice(lo - r, sw - lo + r)
+        sums = []
+        for f in (s_u, s_v):
+            cs = f[lo - r : sh - lo - r, ccols]
+            for dy in range(1, window):
+                cs = cs + f[lo - r + dy : sh - lo - r + dy, ccols]
+            s = torch.zeros((sh - 2 * lo, sw - 2 * lo), dtype=f.dtype)
+            for dx in range(window):
+                s = s + cs[:, dx : dx + sw - 2 * lo]
+            sums.append(s * (1.0 / (window * window)))
+        core = (rows, slice(lo, sw - lo))
+        ub, vb = sums
+        num = a[core] * ub + b[core] * vb + c[core]
+        upd = num / dd[core] if divide else num * dd[core]
+        s_u, s_v = s_u.clone(), s_v.clone()
+        s_u[core] = torch.where(inside[core], ub - a[core] * upd, 0.0)
+        s_v[core] = torch.where(inside[core], vb - b[core] * upd, 0.0)
+    need = k * r
+    return (s_u[need : sh - need, need : sw - need],
+            s_v[need : sh - need, need : sw - need], y0 + need, x0 + need)
+
+
+def _wide_frame_sweep(u, v, gx, gy, gt, d, window, divide):
+    """csrc/hs_block.cuh's wide form on the whole frame: column sums from
+    the first term with zeros beyond the frame, then W of them from 0."""
+    r = window // 2
+    h, w = u.shape
+    sums = []
+    for f in (u, v):
+        p = bd.pad2d(f, r, bd.ZERO)
+        cs = p[0:h]
+        for dy in range(1, window):
+            cs = cs + p[dy : dy + h]
+        s = torch.zeros_like(f)
+        for dx in range(window):
+            s = s + cs[:, dx : dx + w]
+        sums.append(s * (1.0 / (window * window)))
+    ub, vb = sums
+    num = gx * ub + gy * vb + gt
+    upd = num / d if divide else num * d
+    return ub - gx * upd, vb - gy * upd
+
+
+def _resident_emulated(prev, nxt, window, iters, alpha, divide):
+    """csrc/hs_resident.cu's solve: groups of at most RESIDENT_FUSE sweeps
+    (hs_stencil.resident_plan), each group every tile of the frame staged
+    from the last group's (u, v), its core written to the other buffer; a
+    window of 65 or more one wide-form sweep a group. resident divides by
+    the denominator formed from gx, gy; resident2 multiplies by its
+    reciprocal, formed once. Returns (u, v) and the groups run."""
+    from tpuflow_torch.solvers.horn_schunck import hs_gradients
+
+    gx, gy, gt = hs_gradients(prev, nxt)
+    den = alpha * alpha + gx * gx + gy * gy
+    d = den if divide else 1.0 / den
+    u = torch.zeros_like(gt)
+    v = torch.zeros_like(gt)
+    fuse, _ = hs_stencil.resident_plan(window, iters)
+    r = window // 2
+    h, w = u.shape
+    groups, done = 0, 0
+    while done < iters:
+        if not fuse:
+            u, v = _wide_frame_sweep(u, v, gx, gy, gt, d, window, divide)
+            k = 1
+        else:
+            k = min(fuse, iters - done)
+            core_h = hs_stencil.STAGE[0] - 2 * k * r
+            core_w = hs_stencil.STAGE[1] - 2 * k * r
+            u_new, v_new = torch.empty_like(u), torch.empty_like(v)
+            for ty in range(-(-h // core_h)):
+                for tx in range(-(-w // core_w)):
+                    cu, cv, oy, ox = _staged_sweeps(
+                        u, v, gx, gy, gt, d, ty * core_h - k * r,
+                        tx * core_w - k * r, window, k, divide)
+                    ch, cw = min(core_h, h - oy), min(core_w, w - ox)
+                    u_new[oy : oy + ch, ox : ox + cw] = cu[:ch, :cw]
+                    v_new[oy : oy + ch, ox : ox + cw] = cv[:ch, :cw]
+            u, v = u_new, v_new
+        done += k
+        groups += 1
+    return (u, v), groups
+
+
+@pytest.mark.parametrize("iters", [7, 8])
+@pytest.mark.parametrize("window", [3, 5, 65])
+@pytest.mark.parametrize("which", ["resident", "resident2"])
+def test_resident_fused_form_equals_plain(which, window, iters):
+    """The resident kernel's K-fused form (tiles staged with a K*r halo, K
+    sweeps between grid syncs, 2x3 tiles of a 70x150 frame at window 5) and
+    its wide form at window 65 equal horn_schunck_resident_plain /
+    _resident2_plain bitwise in float32, in resident_plan's group count."""
+    prev, nxt = (torch.tensor(a, dtype=torch.float32)
+                 for a in _frames(70, 150, window))
+    plain = {"resident": hs_stencil.horn_schunck_resident_plain,
+             "resident2": hs_stencil.horn_schunck_resident2_plain}[which]
+    want = plain(prev, nxt, window, iters, 1.0)
+    (u, v), groups = _resident_emulated(prev, nxt, window, iters, 1.0,
+                                        which == "resident")
+    assert groups == hs_stencil.resident_plan(window, iters)[1]
+    assert torch.equal(u, want[0]) and torch.equal(v, want[1])
+
+
+@pytest.mark.parametrize("shape", [(24, 40), (40, 56)])
+@pytest.mark.parametrize("which", ["resident", "resident2"])
+def test_resident_fused_form_matches_tpuflow(shape, which):
+    """The K-fused form against tpuflow's resident kernels in interpret
+    mode, float64, atol 1e-10 as test_resident_plain_matches_tpuflow."""
+    prev, nxt = _frames(*shape, seed=shape[0])
+    ref = {"resident": horn_schunck_pallas_resident,
+           "resident2": horn_schunck_pallas_resident2}[which]
+    (u, v), _ = _resident_emulated(_t(prev), _t(nxt), 5, 9, 1.0,
+                                   which == "resident")
+    uj, vj = ref(jnp.asarray(prev), jnp.asarray(nxt), 5, 9, 1.0,
+                 interpret=True)
+    np.testing.assert_allclose(u.numpy(), np.asarray(uj), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(v.numpy(), np.asarray(vj), rtol=0, atol=1e-10)

@@ -14,8 +14,8 @@
 // frame coordinates (row0, col0) of an (img_h, img_w) frame; it writes only
 // the core. Cells past the tile's end read as zero; after `fuse` sweeps
 // their influence reaches need = fuse*r cells inward, which is the halo
-// the core does not include. Both kernels run the one block body below,
-// so they keep one arithmetic.
+// the core does not include. Both kernels run the one block body of
+// csrc/hs_block.cuh (hs_block), so they keep one arithmetic.
 //
 // What bounds it on the H100: one sweep per launch would move 32 bytes per
 // pixel for ~60 flops, so the sweeps are fused: a block stages an SH x SW
@@ -39,8 +39,21 @@
 // other's work. Cells outside the frame are held at 0 after every sweep,
 // which is the BORDER_CONSTANT box of the reference. The build disables
 // FMA contraction, so the kernel rounds as the plain PyTorch version does.
+//
+// A window of 65 or more (r >= 32) leaves no core in the 64x64 staged tile
+// even for one sweep. Such a window takes the wide form, one sweep per
+// hs_wide_launch, of both the whole-frame and the tile sweeps:
+// hs_colsum_kernel writes every cell's column sums of u and v to device
+// memory (zero beyond the frame, and beyond the tile), and
+// hs_update_kernel adds W of them along the row from 0 and applies the
+// update. It is the same order, so the same bits, at any window; it moves
+// 16 bytes per cell and sweep more than the staged form and reads W
+// column sums per cell from L1/L2, which is the price of a window no
+// staged tile holds. Windows below 65 never take it.
 
 #include <cuda_runtime.h>
+
+#include "hs_block.cuh"
 
 namespace {
 
@@ -54,147 +67,6 @@ constexpr int THREADS = 32 * (SH / CY);
 constexpr int BLOCKS_PER_SM = 2;
 constexpr size_t SMEM = 4 * sizeof(float) * SH * SW;
 
-// `fuse` sweeps of one staged tile, then its core written back. Staged
-// cell (y, x) is input cell (iy0 + y, ix0 + x) of an (in_h, in_w) array
-// (zero beyond it), frame cell (fy0 + y, fx0 + x), and output cell
-// (oy0 + y, ox0 + x) of an (out_h, out_w) array. KR is the box radius, or
-// 0 to take it from `window`.
-template <int KR>
-__device__ __forceinline__ void hs_block(
-    const float* __restrict__ u_in, const float* __restrict__ v_in,
-    const float* __restrict__ gx, const float* __restrict__ gy,
-    const float* __restrict__ gt, const float* __restrict__ inv,
-    float* __restrict__ u_out, float* __restrict__ v_out, int in_h,
-    int in_w, int iy0, int ix0, int fy0, int fx0, int img_h, int img_w,
-    int out_h, int out_w, int oy0, int ox0, int window, int fuse,
-    float inv_area) {
-  extern __shared__ float smem[];
-  constexpr int N = SH * SW;
-  float* s_u = smem;
-  float* s_v = s_u + N;
-  float* s_cu = s_v + N;  // column sums of u and v
-  float* s_cv = s_cu + N;
-  const int r = KR > 0 ? KR : window / 2;
-  const int win = 2 * r + 1;
-  const int tx = threadIdx.x;
-  const int y0 = threadIdx.y * CY;
-
-  float f_gx[CY][CX], f_gy[CY][CX], f_gt[CY][CX], f_inv[CY][CX];
-  unsigned inside = 0;  // bit j*CX + i: the cell is in the frame
-#pragma unroll
-  for (int j = 0; j < CY; ++j) {
-#pragma unroll
-    for (int i = 0; i < CX; ++i) {
-      const int y = y0 + j;
-      const int x = tx + 32 * i;
-      const int iy = iy0 + y;
-      const int ix = ix0 + x;
-      const bool in_frame = fy0 + y >= 0 && fy0 + y < img_h &&
-                            fx0 + x >= 0 && fx0 + x < img_w;
-      float u = 0.f, v = 0.f, a = 0.f, b = 0.f, c = 0.f, d = 0.f;
-      if (iy >= 0 && iy < in_h && ix >= 0 && ix < in_w) {
-        const size_t g = (size_t)iy * in_w + ix;
-        if (in_frame) {
-          u = u_in[g];
-          v = v_in[g];
-        }
-        a = gx[g];
-        b = gy[g];
-        c = gt[g];
-        d = inv[g];
-      }
-      if (in_frame) inside |= 1u << (j * CX + i);
-      s_u[y * SW + x] = u;
-      s_v[y * SW + x] = v;
-      f_gx[j][i] = a;
-      f_gy[j][i] = b;
-      f_gt[j][i] = c;
-      f_inv[j][i] = d;
-    }
-  }
-  __syncthreads();
-
-  for (int t = 1; t <= fuse; ++t) {
-    // Sweep t is valid on [t*r, size - t*r): it reads the r-ring that
-    // sweep t-1 left valid. Column sums first, on the columns the update
-    // reads.
-    const int lo = t * r;
-#pragma unroll
-    for (int j = 0; j < CY; ++j) {
-      const int y = y0 + j;
-      if (y < lo || y >= SH - lo) continue;
-#pragma unroll
-      for (int i = 0; i < CX; ++i) {
-        const int x = tx + 32 * i;
-        if (x < lo - r || x >= SW - lo + r) continue;
-        const float* pu = s_u + (y - r) * SW + x;
-        const float* pv = s_v + (y - r) * SW + x;
-        float cu = pu[0];
-        float cv = pv[0];
-#pragma unroll
-        for (int dy = 1; dy < win; ++dy) {
-          cu += pu[dy * SW];
-          cv += pv[dy * SW];
-        }
-        s_cu[y * SW + x] = cu;
-        s_cv[y * SW + x] = cv;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < CY; ++j) {
-      const int y = y0 + j;
-      if (y < lo || y >= SH - lo) continue;
-#pragma unroll
-      for (int i = 0; i < CX; ++i) {
-        const int x = tx + 32 * i;
-        if (x < lo || x >= SW - lo) continue;
-        const float* pu = s_cu + y * SW + x - r;
-        const float* pv = s_cv + y * SW + x - r;
-        float su = 0.f;
-        float sv = 0.f;
-#pragma unroll
-        for (int dx = 0; dx < win; ++dx) {
-          su += pu[dx];
-          sv += pv[dx];
-        }
-        float u_new = 0.f;
-        float v_new = 0.f;
-        if (inside & (1u << (j * CX + i))) {
-          const float ub = su * inv_area;
-          const float vb = sv * inv_area;
-          const float upd =
-              (f_gx[j][i] * ub + f_gy[j][i] * vb + f_gt[j][i]) * f_inv[j][i];
-          u_new = ub - f_gx[j][i] * upd;
-          v_new = vb - f_gy[j][i] * upd;
-        }
-        s_u[y * SW + x] = u_new;
-        s_v[y * SW + x] = v_new;
-      }
-    }
-    if (t < fuse) __syncthreads();
-  }
-
-  // Each thread writes back the core cells it owns (it wrote them last).
-  const int need = fuse * r;
-#pragma unroll
-  for (int j = 0; j < CY; ++j) {
-#pragma unroll
-    for (int i = 0; i < CX; ++i) {
-      const int y = y0 + j;
-      const int x = tx + 32 * i;
-      const int oy = oy0 + y;
-      const int ox = ox0 + x;
-      if (y < need || y >= SH - need || x < need || x >= SW - need ||
-          oy >= out_h || ox >= out_w)
-        continue;
-      u_out[(size_t)oy * out_w + ox] = s_u[y * SW + x];
-      v_out[(size_t)oy * out_w + ox] = s_v[y * SW + x];
-    }
-  }
-}
-
 template <int KR>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) hs_sweeps_kernel(
     const float* __restrict__ u_in, const float* __restrict__ v_in,
@@ -205,8 +77,9 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) hs_sweeps_kernel(
   const int need = fuse * (KR > 0 ? KR : window / 2);
   const int y0 = blockIdx.y * (SH - 2 * need) - need;
   const int x0 = blockIdx.x * (SW - 2 * need) - need;
-  hs_block<KR>(u_in, v_in, gx, gy, gt, inv, u_out, v_out, h, w, y0, x0, y0,
-               x0, h, w, h, w, y0, x0, window, fuse, inv_area);
+  hs_block<SH, CX, CY, KR, false>(u_in, v_in, gx, gy, gt, inv, u_out, v_out,
+                                  h, w, y0, x0, y0, x0, h, w, h, w, y0, x0,
+                                  window, fuse, inv_area, 0.f);
 }
 
 // One halo'd (hh x hw) tile in, its (hh - 2*need) x (hw - 2*need) core
@@ -222,10 +95,10 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) hs_tile_kernel(
   const int need = fuse * (KR > 0 ? KR : window / 2);
   const int ay0 = blockIdx.y * (SH - 2 * need);
   const int ax0 = blockIdx.x * (SW - 2 * need);
-  hs_block<KR>(u_in, v_in, gx, gy, gt, inv, u_out, v_out, hh, hw, ay0, ax0,
-               row0 + ay0, col0 + ax0, img_h, img_w, hh - 2 * need,
-               hw - 2 * need, ay0 - need, ax0 - need, window, fuse,
-               inv_area);
+  hs_block<SH, CX, CY, KR, false>(
+      u_in, v_in, gx, gy, gt, inv, u_out, v_out, hh, hw, ay0, ax0,
+      row0 + ay0, col0 + ax0, img_h, img_w, hh - 2 * need, hw - 2 * need,
+      ay0 - need, ax0 - need, window, fuse, inv_area, 0.f);
 }
 
 // The kernel for a window: the main paths' 5x5 box with its radius
@@ -286,6 +159,37 @@ extern "C" int hs_tile_launch(
   return (int)cudaGetLastError();
 }
 
+// The wide form (see the header note): a 2-D grid of 32x8 blocks over the
+// column sums, then over the output.
+constexpr int WIDE_BX = 32;
+constexpr int WIDE_BY = 8;
+
+__global__ void __launch_bounds__(WIDE_BX * WIDE_BY) hs_colsum_kernel(
+    const HsWide p, const float* __restrict__ u, const float* __restrict__ v,
+    float* __restrict__ cs_u, float* __restrict__ cs_v) {
+  const int x = blockIdx.x * WIDE_BX + threadIdx.x;
+  const int y = blockIdx.y * WIDE_BY + threadIdx.y;
+  if (x < p.in_w && y < p.in_h - 2 * p.off)
+    hs_colsum_cell(p, u, v, cs_u, cs_v, y, x);
+}
+
+__global__ void __launch_bounds__(WIDE_BX * WIDE_BY) hs_update_kernel(
+    const HsWide p, const float* __restrict__ cs_u,
+    const float* __restrict__ cs_v, const float* __restrict__ gx,
+    const float* __restrict__ gy, const float* __restrict__ gt,
+    const float* __restrict__ inv, float* __restrict__ u_out,
+    float* __restrict__ v_out, float inv_area) {
+  const int x = blockIdx.x * WIDE_BX + threadIdx.x;
+  const int y = blockIdx.y * WIDE_BY + threadIdx.y;
+  if (x < p.in_w - 2 * p.off && y < p.in_h - 2 * p.off)
+    hs_update_cell<false>(p, cs_u, cs_v, gx, gy, gt, inv, u_out, v_out, y, x,
+                          inv_area, 0.f);
+}
+
+dim3 wide_grid(int h, int w) {
+  return dim3((w + WIDE_BX - 1) / WIDE_BX, (h + WIDE_BY - 1) / WIDE_BY);
+}
+
 template <typename F>
 int blocks_per_sm(F kernel) {
   int blocks = 0;
@@ -301,6 +205,35 @@ int blocks_per_sm(F kernel) {
 extern "C" int hs_blocks_per_sm(int tile, int window) {
   return tile ? blocks_per_sm(tile_for(window))
               : blocks_per_sm(sweeps_for(window));
+}
+
+// One sweep of the wide form: the two kernels above, on an (in_h, in_w)
+// input whose (0, 0) is frame cell (fy0, fx0), into an (in_h - 2*off,
+// in_w - 2*off) output; cs_u and cs_v are (in_h - 2*off, in_w) scratch.
+// The fixed fields are read at (g0 + y, g0 + x) of pitch g_w.
+extern "C" int hs_wide_launch(
+    const void* u, const void* v, const void* gx, const void* gy,
+    const void* gt, const void* inv, void* u_out, void* v_out, void* cs_u,
+    void* cs_v, int in_h, int in_w, int off, int g_w, int g0, int fy0,
+    int fx0, int img_h, int img_w, int window, float inv_area,
+    void* stream) {
+  const HsWide p{in_h, in_w, off, g_w, g0, fy0, fx0, img_h, img_w,
+                 window / 2};
+  const int out_h = in_h - 2 * off;
+  const int out_w = in_w - 2 * off;
+  if (out_h < 1 || out_w < 1) return (int)cudaErrorInvalidValue;
+  const dim3 block(WIDE_BX, WIDE_BY);
+  hs_colsum_kernel<<<wide_grid(out_h, in_w), block, 0,
+                     (cudaStream_t)stream>>>(
+      p, (const float*)u, (const float*)v, (float*)cs_u, (float*)cs_v);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  hs_update_kernel<<<wide_grid(out_h, out_w), block, 0,
+                     (cudaStream_t)stream>>>(
+      p, (const float*)cs_u, (const float*)cs_v, (const float*)gx,
+      (const float*)gy, (const float*)gt, (const float*)inv, (float*)u_out,
+      (float*)v_out, inv_area);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* hs_sweeps_error_string(int code) {

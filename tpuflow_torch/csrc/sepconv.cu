@@ -9,20 +9,43 @@
 // for the (hp - nky + 1, wp - nkx + 1) VALID output. The caller pads for
 // the border policy, exactly as the plain version's caller does.
 //
-// What bounds it on the H100: 2 * (nky + nkx) flops per output pixel
-// against 8 bytes of device memory (one read, one write), so at the
-// Farneback box (48 taps) the direct tap loop is bound by shared-memory
-// reads, not by device memory. One block stages its output tile plus the
-// (taps - 1) halo in shared memory once, runs the row pass into a shared
-// intermediate (the halo columns included) and the column pass out of
-// it: both passes in one launch, and the row-pass intermediate never
-// touches device memory. The TPU kernel's (8, 128)-aligned margins and its
-// log2-doubling window sum for uniform taps are not carried over.
+// What bounds it on the H100: 2 * (nky + nkx) - 2 float operations per
+// output pixel against 8 bytes of device memory (one read, one write), so
+// at Farneback's taps (15-64) it is bound by the arithmetic, and a direct
+// tap loop, which reads one operand per multiply and add, is bound by
+// its loads before that: at 48 taps one shared-memory load per tap and
+// cell, ~131 per output, with an integer / and % per cell.
 //
-// Taps arrive by value in a parameter struct (already rounded to float32
-// on the host). The build disables FMA contraction and the terms are
-// summed in the plain version's order (tap 0 first), so the kernel
-// rounds as PyTorch's eager ops do and matches sep_conv2d_valid_plain.
+// The design streams the taps past register accumulators, so each input
+// is loaded once per thread instead of once per tap. A block writes a
+// TH x TW = 64 x 128 output tile with 256 threads.
+// - The first pass (ky, down the columns): a thread owns one column of the
+//   tile's TW + nkx - 1 and R = 16 consecutive rows. It reads the column's
+//   R + nky - 1 inputs straight from device memory (neighbouring threads
+//   take neighbouring columns, so the loads coalesce), R at a time into
+//   registers a chunk of R taps before they are used, and at tap d adds
+//   ky[d] * in[y + j + d] to accumulator j. Each accumulator receives its
+//   terms in tap order, d = 0, 1, ..., as the plain version adds them. The
+//   rows go to shared memory, whose odd pitch keeps the second pass free
+//   of bank conflicts.
+// - The second pass (kx, along the rows): the same stream along a row of
+//   the shared rows, R = 16 outputs a thread, the 32 lanes of a warp on 32
+//   rows; the results go to a shared tile that the block writes out with
+//   coalesced stores.
+// - A tap is the same for the whole warp at each step: the taps come from
+//   the kernel's parameter bank (__grid_constant__), already rounded to
+//   float32 on the host. Every tap count up to SEPCONV_MAX_TAPS runs; the
+//   main paths' counts (15, 17, 48, 64 on both axes) have it compiled in,
+//   so their chunks unroll whole.
+// - The 128-wide tile costs the first pass (128 + nkx - 1) / 128 of the
+//   output's columns: 1.37x at 48 taps, against 1.73x with 64-wide tiles.
+//   At 1080x1920 the grid is 15 x 17 = 255 blocks, one wave at two blocks
+//   per SM (at most 96 KB of shared memory each).
+// - Threads map to cells by shifts, masks and a subtraction carried from
+//   one item to the next: no integer division per cell.
+// The build disables FMA contraction and the terms are summed in the plain
+// version's order (tap 0 first), so the kernel rounds as PyTorch's eager
+// ops do and matches sep_conv2d_valid_plain.
 
 #include <cuda_runtime.h>
 
@@ -30,53 +53,175 @@
 
 namespace {
 
+constexpr int TH = 64;          // output rows of a block
+constexpr int TW = 128;         // output columns of a block
+constexpr int R = 16;           // outputs a thread accumulates in a pass
+constexpr int THREADS = 256;
+constexpr int GROUPS = TH / R;  // row groups of the first pass
+constexpr int LOG_TH = 6;
+constexpr int LOG_TW = 7;
+constexpr int OUT_PITCH = TW + 1;
+static_assert(1 << LOG_TH == TH && 1 << LOG_TW == TW, "tile sizes");
+
 struct Taps {
   float ky[SEPCONV_MAX_TAPS];
   float kx[SEPCONV_MAX_TAPS];
 };
 
-__global__ void sep_conv2d_valid_kernel(const float* __restrict__ in,
-                                        float* __restrict__ out, int hp,
-                                        int wp, int ho, int wo, int nky,
-                                        int nkx, int tile_h, int tile_w,
-                                        const Taps taps) {
+// Taps d .. d + R - 1 (those below n) of the stream: tap d + s is added
+// to accumulator j from input d + s + j, which is cur[s + j] (inputs d ..
+// d + R - 1) or nxt[s + j - R] (inputs d + R .. d + 2R - 1); both indices
+// are compile-time. FIRST: the chunk of tap 0, which starts each
+// accumulator.
+template <bool FIRST>
+__device__ __forceinline__ void tap_chunk(const float (&k)[SEPCONV_MAX_TAPS],
+                                          int d, int n, const float (&cur)[R],
+                                          const float (&nxt)[R],
+                                          float (&acc)[R]) {
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    if (d + s < n) {
+      const float t = k[d + s];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const float p = t * (s + j < R ? cur[s + j] : nxt[s + j - R]);
+        acc[j] = (FIRST && s == 0) ? p : acc[j] + p;
+      }
+    }
+  }
+}
+
+// The chunk of taps d .. d + R - 1: the loads of the chunk after next
+// issued first, then the taps, then the inputs handed on.
+template <typename Load>
+__device__ __forceinline__ void chunk_step(
+    const float (&k)[SEPCONV_MAX_TAPS], int d, int n, const Load& load,
+    float (&cur)[R], float (&nxt)[R], float (&acc)[R]) {
+  const int inputs = R + n - 1;
+  float pre[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q)
+    pre[q] = d + 2 * R + q < inputs ? load(d + 2 * R + q) : 0.f;
+  if (d == 0)
+    tap_chunk<true>(k, d, n, cur, nxt, acc);
+  else
+    tap_chunk<false>(k, d, n, cur, nxt, acc);
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    cur[q] = nxt[q];
+    nxt[q] = pre[q];
+  }
+}
+
+// acc[j] = sum_{d < n} k[d] * load(j + d), each sum in tap order. Each
+// input load(q), q < R + n - 1, is read once, a chunk of R taps before it
+// is used, so the loads of a chunk are in flight while the last one
+// computes. N > 0 compiles the tap count in (n == N): the chunks unroll,
+// their bounds checks fold away and the hand-on of the inputs becomes a
+// renaming of registers. N == 0 takes n at run time.
+template <int N, typename Load>
+__device__ __forceinline__ void sliding_taps(
+    const float (&k)[SEPCONV_MAX_TAPS], int n_run, const Load& load,
+    float (&acc)[R]) {
+  const int n = N > 0 ? N : n_run;
+  float cur[R], nxt[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    cur[q] = load(q);
+    nxt[q] = R + q < R + n - 1 ? load(R + q) : 0.f;
+  }
+  if constexpr (N > 0) {
+#pragma unroll
+    for (int d = 0; d < N; d += R) chunk_step(k, d, N, load, cur, nxt, acc);
+  } else {
+#pragma unroll 1
+    for (int d = 0; d < n; d += R) chunk_step(k, d, n, load, cur, nxt, acc);
+  }
+}
+
+// NY, NX > 0: the tap counts compiled in (the main paths' 15, 17, 48 and
+// 64, the same on both axes); 0: taken at run time.
+template <int NY, int NX>
+__global__ void __launch_bounds__(THREADS, 2) sep_conv2d_valid_kernel(
+    const float* __restrict__ in, float* __restrict__ out, int hp, int wp,
+    int ho, int wo, int nky, int nkx, const __grid_constant__ Taps taps) {
+  if (NY > 0) nky = NY;
+  if (NX > 0) nkx = NX;
   extern __shared__ float smem[];
-  const int sh = tile_h + nky - 1;
-  const int sw = tile_w + nkx - 1;
-  float* s_in = smem;             // sh x sw input window
-  float* s_rows = smem + sh * sw; // tile_h x sw row-pass intermediate
-  const int row0 = blockIdx.y * tile_h;
-  const int col0 = blockIdx.x * tile_w;
+  const int ncols = TW + nkx - 1;  // the first pass's columns
+  const int pitch = ncols | 1;     // odd: lanes on rows hit distinct banks
+  float* s_rows = smem;                // TH x pitch
+  float* s_out = smem + TH * pitch;    // TH x OUT_PITCH
+  const int row0 = blockIdx.y * TH;
+  const int col0 = blockIdx.x * TW;
+  const int tid = threadIdx.x;
+  float acc[R];
 
-  for (int i = threadIdx.x; i < sh * sw; i += blockDim.x) {
-    const int y = row0 + i / sw;
-    const int x = col0 + i % sw;
-    // Cells past the padded image feed only outputs past the frame.
-    s_in[i] = (y < hp && x < wp) ? in[(size_t)y * wp + x] : 0.f;
+  // First pass: item (c, g) is column c, rows g*R .. g*R + R - 1, taken in
+  // the order g*ncols + c, tid + k*THREADS.
+  int c = tid;
+  int g = 0;
+  while (c >= ncols) {
+    c -= ncols;
+    ++g;
   }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < tile_h * sw; i += blockDim.x) {
-    const int r = i / sw;
-    const int c = i % sw;
-    const float* p = s_in + r * sw + c;
-    float acc = taps.ky[0] * p[0];
-    for (int d = 1; d < nky; ++d) acc = acc + taps.ky[d] * p[d * sw];
-    s_rows[i] = acc;
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < tile_h * tile_w; i += blockDim.x) {
-    const int r = i / tile_w;
-    const int c = i % tile_w;
-    const int y = row0 + r;
+  while (g < GROUPS) {
     const int x = col0 + c;
-    if (y >= ho || x >= wo) continue;
-    const float* p = s_rows + r * sw + c;
-    float acc = taps.kx[0] * p[0];
-    for (int d = 1; d < nkx; ++d) acc = acc + taps.kx[d] * p[d];
-    out[(size_t)y * wo + x] = acc;
+    const int y = row0 + g * R;
+    const float* col = in + x;
+    const bool x_in = x < wp;
+    // Rows past the padded image feed only outputs past the frame.
+    sliding_taps<NY>(taps.ky, nky, [&](int q) {
+      return x_in && y + q < hp ? __ldg(col + (size_t)(y + q) * wp) : 0.f;
+    }, acc);
+#pragma unroll
+    for (int j = 0; j < R; ++j) s_rows[(g * R + j) * pitch + c] = acc[j];
+    c += THREADS;
+    while (c >= ncols) {
+      c -= ncols;
+      ++g;
+    }
   }
+  __syncthreads();
+
+  // Second pass: item i is row i % TH, columns (i / TH) * R .. + R - 1.
+  for (int i = tid; i < TH * (TW / R); i += THREADS) {
+    const int row = i & (TH - 1);
+    const int c0 = (i >> LOG_TH) * R;
+    const float* src = s_rows + row * pitch + c0;
+    sliding_taps<NX>(taps.kx, nkx, [&](int q) { return src[q]; }, acc);
+#pragma unroll
+    for (int j = 0; j < R; ++j) s_out[row * OUT_PITCH + c0 + j] = acc[j];
+  }
+  __syncthreads();
+
+  for (int i = tid; i < TH * TW; i += THREADS) {
+    const int row = i >> LOG_TW;
+    const int col = i & (TW - 1);
+    const int y = row0 + row;
+    const int x = col0 + col;
+    if (y < ho && x < wo)
+      out[(size_t)y * wo + x] = s_out[row * OUT_PITCH + col];
+  }
+}
+
+using SepFn = decltype(&sep_conv2d_valid_kernel<0, 0>);
+
+SepFn kernel_for(int nky, int nkx) {
+  if (nky == nkx) {
+    switch (nky) {
+      case 15: return sep_conv2d_valid_kernel<15, 15>;
+      case 17: return sep_conv2d_valid_kernel<17, 17>;
+      case 48: return sep_conv2d_valid_kernel<48, 48>;
+      case 64: return sep_conv2d_valid_kernel<64, 64>;
+    }
+  }
+  return sep_conv2d_valid_kernel<0, 0>;
+}
+
+size_t smem_bytes(int nkx) {
+  return sizeof(float) * (size_t)TH *
+         (size_t)(((TW + nkx - 1) | 1) + OUT_PITCH);
 }
 
 }  // namespace
@@ -87,7 +232,8 @@ extern "C" int sep_conv2d_valid_launch(const void* in, void* out, int hp,
                                        int tile_w, int threads,
                                        void* stream) {
   if (nky < 1 || nkx < 1 || nky > SEPCONV_MAX_TAPS ||
-      nkx > SEPCONV_MAX_TAPS || hp < nky || wp < nkx)
+      nkx > SEPCONV_MAX_TAPS || hp < nky || wp < nkx || tile_h != TH ||
+      tile_w != TW || threads != THREADS)
     return (int)cudaErrorInvalidValue;
   Taps taps;
   for (int d = 0; d < SEPCONV_MAX_TAPS; ++d) {
@@ -96,18 +242,29 @@ extern "C" int sep_conv2d_valid_launch(const void* in, void* out, int hp,
   }
   const int ho = hp - nky + 1;
   const int wo = wp - nkx + 1;
-  const size_t smem = sizeof(float) *
-                      ((size_t)(tile_h + nky - 1) + (size_t)tile_h) *
-                      (size_t)(tile_w + nkx - 1);
+  const size_t smem = smem_bytes(nkx);
+  const SepFn kernel = kernel_for(nky, nkx);
   cudaError_t err = cudaFuncSetAttribute(
-      sep_conv2d_valid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((wo + tile_w - 1) / tile_w, (ho + tile_h - 1) / tile_h);
-  sep_conv2d_valid_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)in, (float*)out, hp, wp, ho, wo, nky, nkx, tile_h,
-      tile_w, taps);
+  const dim3 grid((wo + TW - 1) / TW, (ho + TH - 1) / TH);
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)in, (float*)out, hp, wp, ho, wo, nky, nkx, taps);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the kernel one SM holds at once for nky, nkx taps, or
+// -(CUDA error).
+extern "C" int sep_conv2d_valid_blocks_per_sm(int nky, int nkx) {
+  const size_t smem = smem_bytes(nkx);
+  const SepFn kernel = kernel_for(nky, nkx);
+  int blocks = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        THREADS, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 extern "C" const char* sep_conv2d_valid_error_string(int code) {

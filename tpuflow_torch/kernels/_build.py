@@ -3,10 +3,11 @@
 Each ``tpuflow_torch/csrc/<name>.cu`` has a plain C interface. It is
 compiled with nvcc for Hopper (``sm_90a``) into
 ``build/tpuflow_torch/lib<name>_<hash>.so`` at first use and loaded with
-ctypes. The hash covers the source and the flags, so an edited source is
-rebuilt. Nothing here runs at import time; a failed build raises with
-nvcc's output. nvcc's ``-Xptxas -v`` report (registers, shared memory,
-spills) is kept beside the library as ``<name>.log``.
+ctypes. The hash covers the source, the ``csrc`` headers it includes and
+the flags, so an edited source or header is rebuilt. Nothing here runs at
+import time; a failed build raises with nvcc's output. nvcc's ``-Xptxas
+-v`` report (registers, shared memory, spills) is kept beside the library
+as ``<name>.log``.
 
 ``-fmad=false`` keeps nvcc from contracting a*b+c into one fused
 multiply-add, so a kernel rounds after every operation as PyTorch's
@@ -23,6 +24,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -51,11 +53,27 @@ def _nvcc() -> str:
                        "toolkit (PATH or CUDA_HOME)")
 
 
+def source_bytes(src: Path) -> bytes:
+    """A source with the ``csrc`` headers it includes (``#include "x.cuh"``,
+    recursively), so that an edited header changes the library's hash."""
+    out, seen, todo = b"", set(), [src]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        out += text
+        todo += [CSRC / m.decode()
+                 for m in re.findall(rb'^#include "([^"]+)"', text, re.M)]
+    return out
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    digest = hashlib.sha256(source_bytes(src)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
     if not out.exists():

@@ -12,7 +12,10 @@ demo solver (HornSchunckOF/hornSchunck.cpp:43-75) iterates
 deeper block as several; the source says what bounds it on the H100 and
 how the fused design answers: each box sum is taken as column sums, then
 those summed along the row, which is the plain version's order), on a CPU
-tensor through :func:`hs_sweeps_plain`.
+tensor through :func:`hs_sweeps_plain`. A window of 65 or more, whose halo
+leaves no core in the staged tile even for one sweep (:func:`max_fuse` 0),
+takes the wide form on the card: per sweep one column-sum and one update
+kernel (:func:`hs_wide_sweeps`, two launches), in the same order.
 :func:`horn_schunck_fused` is the whole solve in
 ``max_iterations // fuse`` launches plus one remainder launch, as
 ``horn_schunck_pallas`` runs its blocks. The TPU tiling knobs (tile
@@ -23,10 +26,13 @@ counterpart here.
 solver (:mod:`tpuflow_torch.dist.solvers`): the same sweeps on one halo'd
 tile at a frame offset, through the same CUDA source (a deep block as
 several launches, each taking the last one's core:
-:func:`tpuflow_torch.kernels._build.split_fuse`).
+:func:`tpuflow_torch.kernels._build.split_fuse`; a window of 65 or more
+through the wide form, :func:`hs_wide_tile_sweeps`).
 :func:`horn_schunck_resident` and :func:`horn_schunck_resident2` are
 ``horn_schunck_pallas_resident``/``_resident2``: the whole solve in one
-launch of ``csrc/hs_resident.cu``. ``strip`` (a Mosaic register-spill
+launch of ``csrc/hs_resident.cu``, :data:`RESIDENT_FUSE` sweeps between
+grid syncs (the wide form, one sweep at a time, at a window of 65 or
+more: :func:`resident_plan`). ``strip`` (a Mosaic register-spill
 workaround) and ``interpret`` have no counterpart.
 """
 
@@ -42,7 +48,8 @@ from tpuflow_torch.kernels import _build
 from tpuflow_torch.kernels.fb_kernels import _box_sum_valid
 
 # Launches of the CUDA kernels in this process (never the plain versions):
-# hs_sweeps, hs_tile_sweeps, horn_schunck_resident and _resident2.
+# hs_sweeps, hs_tile_sweeps, horn_schunck_resident and _resident2. A sweep
+# of the wide form counts its two kernels.
 LAUNCHES = 0
 LAUNCHES_TILE = 0
 LAUNCHES_RESIDENT = 0
@@ -57,10 +64,9 @@ THREADS = 512
 BLOCKS_PER_SM = 2
 # Sweeps per launch on the card (the TPU's was 10).
 DEFAULT_FUSE = 3
-# The resident kernel's block tile and threads (u, v and an r halo in
-# shared memory).
-RESIDENT_TILE = (32, 64)
-RESIDENT_THREADS = 256
+# Sweeps the resident kernel runs between two grid syncs, at most (it
+# stages STAGE as hs_sweeps does, with the same block body).
+RESIDENT_FUSE = 3
 
 
 def _lib() -> ctypes.CDLL:
@@ -73,6 +79,10 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_void_p])
     lib.hs_tile_launch.restype = ctypes.c_int
+    lib.hs_wide_launch.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.hs_wide_launch.restype = ctypes.c_int
     lib.hs_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.hs_blocks_per_sm.restype = ctypes.c_int
     lib.hs_sweeps_error_string.argtypes = [ctypes.c_int]
@@ -83,10 +93,11 @@ def _lib() -> ctypes.CDLL:
 def _lib_resident() -> ctypes.CDLL:
     lib = _build.load("hs_resident")
     lib.hs_resident_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-           ctypes.POINTER(ctypes.c_int)])
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+        + [ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
     lib.hs_resident_launch.restype = ctypes.c_int
+    lib.hs_resident_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+    lib.hs_resident_blocks_per_sm.restype = ctypes.c_int
     lib.hs_resident_error_string.argtypes = [ctypes.c_int]
     lib.hs_resident_error_string.restype = ctypes.c_char_p
     return lib
@@ -108,9 +119,10 @@ def tile_for(window: int, fuse: int, name: str = "hs_tile_sweeps"
 
 
 def max_fuse(window: int) -> int:
-    """The most sweeps one launch takes at ``window``: the deepest fuse
-    whose halo leaves a core in the staged tile (0 where one sweep's halo
-    does not: a window of 65 or more)."""
+    """The most sweeps one launch of the staged kernels takes at
+    ``window``: the deepest fuse whose halo leaves a core in the staged
+    tile. 0 where one sweep's halo does not (a window of 65 or more): such
+    a window runs the wide form, one sweep per two launches."""
     r = window // 2
     return _build.max_halo(STAGE) // r if r else sys.maxsize
 
@@ -121,6 +133,17 @@ def blocks_per_sm(tile: bool, window: int) -> int:
     lib = _lib()
     n = lib.hs_blocks_per_sm(int(tile), window)
     _build.check_launch(lib, "hs_sweeps", -n if n < 0 else 0)
+    return n
+
+
+def blocks_per_sm_resident(window: int, recip: bool) -> int:
+    """Blocks of the resident kernel one SM of the current card holds at
+    ``window`` (the staged or the wide form, as :func:`resident_plan`
+    picks)."""
+    lib = _lib_resident()
+    n = lib.hs_resident_blocks_per_sm(window, int(recip),
+                                      resident_plan(window, 1)[0])
+    _build.check_launch(lib, "hs_resident", -n if n < 0 else 0)
     return n
 
 
@@ -148,7 +171,8 @@ def hs_sweeps(u, v, gx, gy, gt, inv_denom, window: int = 5, fuse: int = 1):
 
     CPU tensors take :func:`hs_sweeps_plain`; CUDA tensors (contiguous
     float32, one shape) take ceil(fuse / max_fuse(window)) launches of the
-    CUDA kernel, or raise.
+    CUDA kernel, or at a window of 65 or more 2 * fuse launches of the
+    wide form (:func:`hs_wide_sweeps`), or raise.
     """
     _build.check_fields("hs_sweeps", u, v, gx, gy, gt, inv_denom)
     if window < 1 or window % 2 == 0 or fuse < 1:
@@ -156,7 +180,8 @@ def hs_sweeps(u, v, gx, gy, gt, inv_denom, window: int = 5, fuse: int = 1):
                          f"got window={window}, fuse={fuse}")
     if u.device.type == "cpu":
         return hs_sweeps_plain(u, v, gx, gy, gt, inv_denom, window, fuse)
-    tile_for(window, 1, "hs_sweeps")
+    if not max_fuse(window):
+        return hs_wide_sweeps(u, v, gx, gy, gt, inv_denom, window, fuse)
     return _split_sweeps(_sweeps_launch, u, v, gx, gy, gt, inv_denom, window,
                          fuse)
 
@@ -189,6 +214,41 @@ def _sweeps_launch(u, v, gx, gy, gt, inv_denom, window, fuse):
     _build.check_launch(lib, "hs_sweeps", rc)
     LAUNCHES += 1
     return u_out, v_out
+
+
+def _wide_launch(u, v, gx, gy, gt, inv, out_shape, off, g0, fy0, fx0,
+                 img_h, img_w, window):
+    """One sweep of the wide form (two kernels) on (u, v), whose (0, 0) is
+    frame cell (fy0, fx0), into an ``out_shape`` result whose (0, 0) is
+    input cell (off, off); the fixed fields are read from (g0, g0)."""
+    lib = _lib()
+    in_h, in_w = u.shape
+    u_out = u.new_empty(out_shape)
+    v_out = torch.empty_like(u_out)
+    cs_u = u.new_empty((out_shape[0], in_w))
+    cs_v = torch.empty_like(cs_u)
+    with torch.cuda.device(u.device):
+        rc = lib.hs_wide_launch(
+            u.data_ptr(), v.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+            gt.data_ptr(), inv.data_ptr(), u_out.data_ptr(),
+            v_out.data_ptr(), cs_u.data_ptr(), cs_v.data_ptr(), in_h, in_w,
+            off, gx.shape[1], g0, int(fy0), int(fx0), img_h, img_w, window,
+            1.0 / (window * window), torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(lib, "hs_sweeps", rc)
+    return u_out, v_out
+
+
+def hs_wide_sweeps(u, v, gx, gy, gt, inv_denom, window, fuse):
+    """``fuse`` whole-frame sweeps of the wide form (arguments as
+    :func:`hs_sweeps_plain`'s), two launches each: column sums of u and v
+    to scratch, then the row sums and the update."""
+    global LAUNCHES
+    h, w = u.shape
+    for _ in range(fuse):
+        u, v = _wide_launch(u, v, gx, gy, gt, inv_denom, (h, w), 0, 0, 0, 0,
+                            h, w, window)
+        LAUNCHES += 2
+    return u, v
 
 
 def hs_iterate(u, v, gx, gy, gt, inv_denom, window: int, n_iters: int,
@@ -266,7 +326,9 @@ def hs_tile_sweeps(u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0: int, col0: int,
     (img_h, img_w) frame. CPU tensors take :func:`hs_tile_sweeps_plain`;
     CUDA tensors (contiguous float32) ceil(fuse / max_fuse(window))
     launches of the tile kernel of ``csrc/hs_stencil.cu``, each taking the
-    last one's core, or raise.
+    last one's core, or at a window of 65 or more 2 * fuse launches of the
+    wide form (:func:`hs_wide_tile_sweeps`), or raise. A tile with no core
+    inside its halo raises on every device.
     """
     _build.check_fields("hs_tile_sweeps", u_p, v_p, gx_p, gy_p, gt_p, inv_p)
     if window < 1 or window % 2 == 0 or fuse < 1:
@@ -280,9 +342,29 @@ def hs_tile_sweeps(u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0: int, col0: int,
     if u_p.device.type == "cpu":
         return hs_tile_sweeps_plain(u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0,
                                     col0, img_h, img_w, window, fuse)
-    tile_for(window, 1)
+    if not max_fuse(window):
+        return hs_wide_tile_sweeps(u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0,
+                                   col0, img_h, img_w, window, fuse)
     return _split_tile(_tile_launch, u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0,
                        col0, img_h, img_w, window, fuse)
+
+
+def hs_wide_tile_sweeps(u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0, col0, img_h,
+                        img_w, window, fuse):
+    """``fuse`` sweeps of the wide form on one halo'd tile (arguments as
+    :func:`hs_tile_sweeps_plain`'s), two launches each: sweep t takes the
+    last one's result, r cells smaller on each side, and reads the fixed
+    fields t*r cells in, where its output starts."""
+    global LAUNCHES_TILE
+    r = window // 2
+    u, v = u_p, v_p
+    for t in range(1, fuse + 1):
+        o = (t - 1) * r
+        u, v = _wide_launch(u, v, gx_p, gy_p, gt_p, inv_p,
+                            (u.shape[0] - 2 * r, u.shape[1] - 2 * r), r,
+                            t * r, row0 + o, col0 + o, img_h, img_w, window)
+        LAUNCHES_TILE += 2
+    return u, v
 
 
 def _split_tile(launch, u_p, v_p, gx_p, gy_p, gt_p, inv_p, row0, col0, img_h,
@@ -358,6 +440,16 @@ def horn_schunck_resident2_plain(prev, next, window_size: int = 5,
                            max_iterations)
 
 
+def resident_plan(window: int, iterations: int) -> tuple[int, int]:
+    """(fuse, groups) of one resident solve: up to ``fuse`` sweeps between
+    two grid syncs (:data:`RESIDENT_FUSE`, or fewer where the staged tile
+    holds fewer), ceil(iterations / fuse) groups, the last one the rest.
+    fuse 0 is the wide form (a window of 65 or more), one sweep a group.
+    Every group swaps the two (u, v) buffers."""
+    fuse = min(RESIDENT_FUSE, max_fuse(window))
+    return fuse, -(-iterations // fuse) if fuse else iterations
+
+
 def _resident(prev, next, window_size, max_iterations, alpha, recip):
     global LAUNCHES_RESIDENT, LAUNCHES_RESIDENT2
     from tpuflow_torch.solvers.horn_schunck import hs_gradients
@@ -373,25 +465,27 @@ def _resident(prev, next, window_size, max_iterations, alpha, recip):
         return plain(prev, next, window_size, max_iterations, alpha)
     gx, gy, gt = hs_gradients(prev, next)
     h, w = gx.shape
+    fuse, groups = resident_plan(window_size, max_iterations)
     lib = _lib_resident()
     u0, v0, u1, v1 = (torch.empty_like(gx) for _ in range(4))
     inv = torch.empty_like(gx) if recip else None
+    cs = [torch.empty_like(gx) for _ in range(2)] if not fuse else [None] * 2
     grid = ctypes.c_int(0)
     with torch.cuda.device(gx.device):
         rc = lib.hs_resident_launch(
             gx.data_ptr(), gy.data_ptr(), gt.data_ptr(),
             None if inv is None else inv.data_ptr(), u0.data_ptr(),
-            v0.data_ptr(), u1.data_ptr(), v1.data_ptr(), h, w,
-            *RESIDENT_TILE, window_size, max_iterations,
-            float(alpha * alpha), 1.0 / (window_size * window_size),
-            int(recip), RESIDENT_THREADS,
+            v0.data_ptr(), u1.data_ptr(), v1.data_ptr(),
+            *(None if c is None else c.data_ptr() for c in cs), h, w,
+            window_size, max_iterations, fuse, float(alpha * alpha),
+            1.0 / (window_size * window_size), int(recip),
             torch.cuda.current_stream().cuda_stream, ctypes.byref(grid))
     _build.check_launch(lib, "hs_resident", rc)
     if recip:
         LAUNCHES_RESIDENT2 += 1
     else:
         LAUNCHES_RESIDENT += 1
-    return (u0, v0) if max_iterations % 2 == 0 else (u1, v1)
+    return (u0, v0) if groups % 2 == 0 else (u1, v1)
 
 
 def horn_schunck_resident(prev: torch.Tensor, next: torch.Tensor,
@@ -404,7 +498,8 @@ def horn_schunck_resident(prev: torch.Tensor, next: torch.Tensor,
     (u, v) and ``max_iterations`` sweeps dividing by alpha^2 + gx^2 + gy^2
     every sweep. CPU tensors take :func:`horn_schunck_resident_plain`;
     CUDA tensors (contiguous float32) one cooperative launch of
-    ``csrc/hs_resident.cu``, or raise.
+    ``csrc/hs_resident.cu`` at any odd window (:func:`resident_plan`), or
+    raise.
     """
     return _resident(prev, next, window_size, max_iterations, alpha, False)
 

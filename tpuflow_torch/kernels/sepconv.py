@@ -9,7 +9,8 @@ Wp - len(kx) + 1) VALID result; the caller pads for its border policy
 :func:`sep_conv2d_valid` takes the taps on the host. They are rounded
 once to the image's dtype (float32 for the kernel), and both versions
 multiply by the rounded values and add the terms in tap order, so on the
-card the kernel (``csrc/sepconv.cu``, one launch for both passes) matches
+card the kernel (``csrc/sepconv.cu``, one launch for both passes, each
+streaming the taps past register accumulators in tap order) matches
 :func:`sep_conv2d_valid_plain` bitwise. A CPU tensor takes the plain
 version; a CUDA tensor takes the kernel or raises. The TPU kernel's
 log2-doubling sum for uniform taps is not ported: every tap list runs the
@@ -27,12 +28,15 @@ from tpuflow_torch.kernels import _build
 
 # Launches of the CUDA kernel in this process (never the plain version).
 LAUNCHES = 0
-# Output tile of one block and its thread count. The block holds the
-# input window (TILE_H + nky - 1) x (TILE_W + nkx - 1) and the row-pass
-# intermediate TILE_H x (TILE_W + nkx - 1) in shared memory.
-TILE_H = 32
-TILE_W = 64
+# Output tile of one block and its thread count (csrc/sepconv.cu's TH, TW
+# and THREADS). The first pass reads the input from device memory into
+# registers; shared memory holds its TILE_H x (TILE_W + nkx - 1) result (an
+# odd pitch) and the TILE_H x (TILE_W + 1) output tile. ACC outputs per
+# thread and pass.
+TILE_H = 64
+TILE_W = 128
 THREADS = 256
+ACC = 16
 # Taps per axis the kernel's parameter struct holds (csrc/sepconv.cu);
 # smem_bytes(MAX_TAPS, MAX_TAPS) fits one block.
 MAX_TAPS = 128
@@ -45,13 +49,25 @@ def _lib() -> ctypes.CDLL:
         + [ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_int] * 3
         + [ctypes.c_void_p])
     lib.sep_conv2d_valid_launch.restype = ctypes.c_int
+    lib.sep_conv2d_valid_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+    lib.sep_conv2d_valid_blocks_per_sm.restype = ctypes.c_int
     lib.sep_conv2d_valid_error_string.argtypes = [ctypes.c_int]
     lib.sep_conv2d_valid_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def smem_bytes(nky: int, nkx: int) -> int:
-    return 4 * (TILE_H + nky - 1 + TILE_H) * (TILE_W + nkx - 1)
+    """Shared memory of one block (the same for every ``nky``)."""
+    return 4 * TILE_H * (((TILE_W + nkx - 1) | 1) + TILE_W + 1)
+
+
+def blocks_per_sm(nky: int, nkx: int) -> int:
+    """Blocks of the kernel one SM of the current card holds at once for
+    ``nky``, ``nkx`` taps (CUDA's occupancy calculator)."""
+    lib = _lib()
+    n = lib.sep_conv2d_valid_blocks_per_sm(nky, nkx)
+    _build.check_launch(lib, "sep_conv2d_valid", -n if n < 0 else 0)
+    return n
 
 
 def host_taps(taps, dtype: torch.dtype) -> np.ndarray:
