@@ -26,9 +26,11 @@ Phases, each printing one line of its own numbers:
    ragged KITTI size), HS also at 3x3 there; IRLS 512 sweeps at fuse 16 at
    each level of BA's pyramid, where the launcher picks its staged tile
    per level (bitwise, launches counted, device ms per level); sepconv at
-   1080x1920 with 48, 17 and 15 taps and at 375x1242 with 64 (blocks per
-   SM, registers and spills beside each); poly expansion at 1080x1920 with
-   n = 8 and 5 and at 375x1242; blur-solve at 1080x1920 with winsize 48 and
+   1080x1920 with 48, 17, 15, 9, 3 and 48x15 taps and at 375x1242 with 64
+   (blocks per SM, registers and spills of the instantiation each runs:
+   15, 48 and 64 have their count compiled in, the others take it at run
+   time; every row also in the kernels line's ``rows``); poly expansion
+   at 1080x1920 with n = 8 and 5 and at 375x1242; blur-solve at 1080x1920 with winsize 48 and
    at 375x1242 with 64; the gated IRLS 256 sweeps at 376x1240 and
    375x1242, fuse 16 and 15, one and two directions, on the flagship
    scene's own refine inputs; the mean-shift filter at R = 20 for one
@@ -167,10 +169,13 @@ DEEP_HS_FUSE, DEEP_IRLS_FUSE = 16, 40
 # wrappers run in the wide form (two launches a sweep): the kernel checks'
 # sweeps and the solver's iterations at them.
 WIDE_WINDOWS, WIDE_SWEEPS, WIDE_ITERS = (65, 129), 3, 10
-# sepconv's tap counts on the main paths: Farneback's box (48 stream, 64
-# demo, 15 demo3's winsize) and the pyramid blur (17 taps).
-SEP_TAPS = ((HS_SHAPE, 48), (HS_SHAPE, 17), (HS_SHAPE, 15),
-            (RAGGED_SHAPE, 64))
+# sepconv's rows (output shape, nky, nkx): Farneback's box (48 stream,
+# 15 demo3's winsize, 64 demo; counts compiled in) and, through the
+# instantiation that takes the count at run time, demo3's pyramid blur of
+# the full frame (3 and 9 taps), the poly taps (17) and a mixed pair.
+SEP_TAPS = ((HS_SHAPE, 48, 48), (HS_SHAPE, 17, 17), (HS_SHAPE, 15, 15),
+            (RAGGED_SHAPE, 64, 64), (HS_SHAPE, 9, 9), (HS_SHAPE, 3, 3),
+            (HS_SHAPE, 48, 15))
 # The resident pair's bitwise checks: windows, frames and sweeps.
 RESIDENT_WINDOWS, RESIDENT_ITERS = (3, 5, 65), (HS_ITERS, HS_ITERS - 1)
 MS_R, MS_KI = 20, 16.0 / 255.0
@@ -737,29 +742,41 @@ def sepconv_rows(dev, out, usage: bool = True) -> None:
     """``sep_conv2d_valid`` at SEP_TAPS (a box of ky and a Gaussian of kx)
     against its plain version, timed beside one F.conv2d with the outer
     product ky x kx (the library call); ``usage`` adds blocks per SM and
-    ptxas's registers and spills."""
+    ptxas's registers and spills of the instantiation each row runs. The
+    first row is out's; every row also stands in its ``rows``."""
     import torch
     import torch.nn.functional as F
 
     from tpuflow_torch.kernels import sepconv
 
-    for shape, n in SEP_TAPS:
-        rng = np.random.default_rng(n)
-        padded, = f32(dev, rng.uniform(0, 255, (shape[0] + n - 1,
-                                                shape[1] + n - 1)))
-        box = np.full(n, 1.0 / n)
-        gauss = np.exp(-np.linspace(-2.0, 2.0, n) ** 2)
+    rows = []
+    for shape, nky, nkx in SEP_TAPS:
+        rng = np.random.default_rng(nky if nky == nkx else 1000 * nky
+                                    + nkx)
+        padded, = f32(dev, rng.uniform(0, 255, (shape[0] + nky - 1,
+                                                shape[1] + nkx - 1)))
+        box = np.full(nky, 1.0 / nky)
+        gauss = np.exp(-np.linspace(-2.0, 2.0, nkx) ** 2)
         gauss /= gauss.sum()
         ky, kx = (sepconv.host_taps(t, torch.float32) for t in (box, gauss))
         k2, = f32(dev, np.outer(ky, kx)[None, None])
-        kernel_row(out, "sep_conv2d_valid", shape,
+        what = {"taps": (nky, nkx)}
+        if usage:
+            inst = sepconv.instantiation(nky, nkx)
+            what.update(instantiation=list(inst), **kernel_usage(
+                "sep_conv2d_valid_kernelILi{}ELi{}E".format(*inst),
+                sepconv.blocks_per_sm(nky, nkx)))
+        one = {}
+        kernel_row(one, "sep_conv2d_valid", shape,
                    lambda: sepconv.sep_conv2d_valid(padded, box, gauss),
                    lambda: sepconv.sep_conv2d_valid_plain(padded, ky, kx),
-                   sep_bound(*padded.shape, n, n),
-                   library=lambda: F.conv2d(padded[None, None], k2),
-                   taps=(n, n), **(kernel_usage(
-                       f"sep_conv2d_valid_kernelILi{n}ELi{n}E",
-                       sepconv.blocks_per_sm(n, n)) if usage else {}))
+                   sep_bound(*padded.shape, nky, nkx),
+                   library=lambda: F.conv2d(padded[None, None], k2), **what)
+        rows.append({"shape": list(shape), **what,
+                     **one["sep_conv2d_valid"]})
+    if usage and not any(r["instantiation"] == [0, 0] for r in rows):
+        raise AssertionError("no sepconv row runs the run-time tap count")
+    out.setdefault("sep_conv2d_valid", {**rows[0], "rows": rows})
 
 
 def ba_level_shapes() -> list[tuple[int, int]]:

@@ -526,13 +526,15 @@ def _sepconv_blocked(padded, ky, kx):
 
 
 @pytest.mark.parametrize("out_shape", [(70, 150), (3, 131)])
-@pytest.mark.parametrize("taps", [(1, 1), (15, 15), (17, 17), (48, 48),
-                                  (64, 64), (128, 128), (15, 64), (128, 3)])
+@pytest.mark.parametrize("taps", [(1, 1), (3, 3), (9, 9), (15, 15),
+                                  (17, 17), (48, 48), (64, 64), (128, 128),
+                                  (15, 64), (48, 15), (128, 3)])
 def test_sepconv_register_blocked_equals_plain(taps, out_shape):
     """(f) The redesigned sepconv order (register accumulators fed a
     streamed column, then a streamed row, in tap order) equals
-    sep_conv2d_valid_plain bitwise, at every main-path tap count, the
-    largest, mixed counts, and ragged sizes of one and several blocks."""
+    sep_conv2d_valid_plain bitwise, at every main-path tap count (the box's
+    15, 48, 64, the pyramid blur's 3 and 9), the largest, mixed counts, and
+    ragged sizes of one and several blocks."""
     nky, nkx = taps
     rng = np.random.default_rng(nky * 1000 + nkx)
     padded = _f32(rng.uniform(0, 255, (out_shape[0] + nky - 1,
@@ -552,17 +554,50 @@ def test_sepconv_geometry_matches_cuda_source():
     assert sepconv.TILE_W % sepconv.ACC == 0
 
 
-@pytest.mark.parametrize("taps", range(1, sepconv.MAX_TAPS + 1))
-def test_sepconv_every_tap_count_fits(taps):
-    """(f) Every tap count up to MAX_TAPS fits one block's shared memory
-    with two blocks on an SM, and its first-pass rows have an odd pitch
-    (the second pass's 32 lanes on 32 rows hit 32 banks)."""
+def test_sepconv_compiled_counts_match_cuda_source():
+    """(f) The tap counts compiled in are kernel_for's cases, each the same
+    on both axes; every other pair, mixed pairs of compiled counts too,
+    takes the run-time instantiation."""
+    src = (CSRC / "sepconv.cu").read_text()
+    body = src[src.index("SepFn kernel_for("):]
+    body = body[:body.index("\n}\n")]
+    cases = re.findall(r"case (\d+): return sep_conv2d_valid_kernel<(\d+), "
+                       r"(\d+)>;", body)
+    assert all(a == b == c for a, b, c in cases)
+    assert tuple(int(a) for a, _, _ in cases) == sepconv.COMPILED_TAPS
+    assert "return sep_conv2d_valid_kernel<0, 0>;" in body
+    for n in sepconv.COMPILED_TAPS:
+        assert sepconv.instantiation(n, n) == (n, n)
+    for pair in ((3, 3), (9, 9), (17, 17), (48, 15), (15, 48), (128, 128)):
+        assert sepconv.instantiation(*pair) == (0, 0)
+
+
+def _sepconv_tap_count_fits(taps):
     smem = sepconv.smem_bytes(taps, taps)
     assert smem <= MAX_SMEM_BYTES
     assert _blocks_by_arithmetic(smem, sepconv.THREADS) >= 2
     pitch = (sepconv.TILE_W + taps - 1) | 1
     assert pitch % 2 == 1 and pitch >= sepconv.TILE_W + taps - 1
     assert len({(row * pitch) % 32 for row in range(32)}) == 32
+
+
+SEPCONV_EDGE_TAPS = (1, 2, 3, 9, 15, 17, 48, 64, 127, 128)
+
+
+@pytest.mark.parametrize("taps", SEPCONV_EDGE_TAPS)
+def test_sepconv_tap_count_fits(taps):
+    """(f) A tap count fits one block's shared memory with two blocks on
+    an SM, and its first-pass rows have an odd pitch (the second pass's 32
+    lanes on 32 rows hit 32 banks): the ends, the main paths' counts and
+    the pitch's even and odd cases."""
+    _sepconv_tap_count_fits(taps)
+
+
+def test_sepconv_every_tap_count_fits():
+    """(f) The same for every other tap count up to MAX_TAPS."""
+    for taps in range(1, sepconv.MAX_TAPS + 1):
+        if taps not in SEPCONV_EDGE_TAPS:
+            _sepconv_tap_count_fits(taps)
 
 
 @pytest.mark.parametrize("name", ["hs_stencil", "hs_resident"])

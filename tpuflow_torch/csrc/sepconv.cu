@@ -35,8 +35,9 @@
 // - A tap is the same for the whole warp at each step: the taps come from
 //   the kernel's parameter bank (__grid_constant__), already rounded to
 //   float32 on the host. Every tap count up to SEPCONV_MAX_TAPS runs; the
-//   main paths' counts (15, 17, 48, 64 on both axes) have it compiled in,
-//   so their chunks unroll whole.
+//   main paths' box counts (15, 48, 64 on both axes) have it compiled in,
+//   so their chunks unroll whole. Every other count, the pyramid blur's 3
+//   and 9 among them, takes one instantiation with the count at run time.
 // - The 128-wide tile costs the first pass (128 + nkx - 1) / 128 of the
 //   output's columns: 1.37x at 48 taps, against 1.73x with 64-wide tiles.
 //   At 1080x1920 the grid is 15 x 17 = 255 blocks, one wave at two blocks
@@ -139,8 +140,8 @@ __device__ __forceinline__ void sliding_taps(
   }
 }
 
-// NY, NX > 0: the tap counts compiled in (the main paths' 15, 17, 48 and
-// 64, the same on both axes); 0: taken at run time.
+// NY, NX > 0: the tap counts compiled in (kernel_for's 15, 48 and 64, the
+// same on both axes); 0: taken at run time.
 template <int NY, int NX>
 __global__ void __launch_bounds__(THREADS, 2) sep_conv2d_valid_kernel(
     const float* __restrict__ in, float* __restrict__ out, int hp, int wp,
@@ -211,7 +212,6 @@ SepFn kernel_for(int nky, int nkx) {
   if (nky == nkx) {
     switch (nky) {
       case 15: return sep_conv2d_valid_kernel<15, 15>;
-      case 17: return sep_conv2d_valid_kernel<17, 17>;
       case 48: return sep_conv2d_valid_kernel<48, 48>;
       case 64: return sep_conv2d_valid_kernel<64, 64>;
     }

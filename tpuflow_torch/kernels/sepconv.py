@@ -40,6 +40,17 @@ ACC = 16
 # Taps per axis the kernel's parameter struct holds (csrc/sepconv.cu);
 # smem_bytes(MAX_TAPS, MAX_TAPS) fits one block.
 MAX_TAPS = 128
+# Tap counts (the same on both axes) compiled into an instantiation of
+# their own (csrc/sepconv.cu's kernel_for): Farneback's box at 15, 48 and
+# 64 taps. Every other pair takes the instantiation with the count at run
+# time; both sum in the same order.
+COMPILED_TAPS = (15, 48, 64)
+
+
+def instantiation(nky: int, nkx: int) -> tuple[int, int]:
+    """The template arguments of the kernel that runs ``nky``, ``nkx``
+    taps: the counts where they are compiled in, else (0, 0)."""
+    return (nky, nkx) if nky == nkx and nky in COMPILED_TAPS else (0, 0)
 
 
 def _lib() -> ctypes.CDLL:
