@@ -30,11 +30,17 @@ Phases, each printing one line of its own numbers:
    (blocks per SM, registers and spills of the instantiation each runs:
    15, 48 and 64 have their count compiled in, the others take it at run
    time; every row also in the kernels line's ``rows``); poly expansion
-   at 1080x1920 with n = 8 and 5 and at 375x1242; blur-solve at 1080x1920 with winsize 48 and
-   at 375x1242 with 64; the gated IRLS 256 sweeps at 376x1240 and
-   375x1242, fuse 16 and 15, one and two directions, on the flagship
-   scene's own refine inputs; the mean-shift filter at R = 20 for one
-   iteration at 376x1240 and eight on a 96x160 crop; the sharded solvers'
+   with n = 8 (17 taps) at 1080x1920, 375x1242 and 480x640, n = 5 (11
+   taps) at 1080x1920, 540x960 and 270x480 (both counts compiled in) and
+   n = 3 (7 taps, the count at run time), with the blocks per SM,
+   registers and spills of each row's instantiation (``poly_rows``, every
+   row in the kernels line's ``rows``); blur-solve at 1080x1920 with
+   winsize 48 and at 375x1242 with 64; the gated IRLS 256 sweeps at
+   376x1240 and 375x1242, fuse 16 and 15, one and two directions, on the
+   flagship scene's own refine inputs; the mean-shift filter at R = 20 for one
+   iteration at 376x1240 and eight on a 96x160 crop, and the main path's
+   eight at 376x1240 timed, with the launcher's query rows per block,
+   blocks per SM, registers and spills (``ms_rows``); the sharded solvers'
    tile sweeps on one whole-frame tile at origin (-need, -need) (HS 100
    sweeps at 2160x3840, fuse 5; IRLS 512 sweeps at 376x1240, fuse 16),
    each with a zero pad of (u, v) between launches, as a 1x1 mesh's halo
@@ -178,7 +184,17 @@ SEP_TAPS = ((HS_SHAPE, 48, 48), (HS_SHAPE, 17, 17), (HS_SHAPE, 15, 15),
             (HS_SHAPE, 48, 15))
 # The resident pair's bitwise checks: windows, frames and sweeps.
 RESIDENT_WINDOWS, RESIDENT_ITERS = (3, 5, 65), (HS_ITERS, HS_ITERS - 1)
-MS_R, MS_KI = 20, 16.0 / 255.0
+# The flagship's mean-shift filter: R, colour radius and iterations
+# (segmentation/meanshift.py's defaults).
+MS_R, MS_KI, MS_ITERS = 20, 16.0 / 255.0, 8
+# Poly expansion's rows (output shape, poly_n, poly_sigma): poly_n 8 (17
+# taps, compiled in) at the FB stream's 1080x1920, the demo's size (the
+# ragged 375x1242) and dense_flow_stream's 480x640; poly_n 5 (11 taps,
+# compiled in) at demo3's three pyramid levels of 1080x1920; poly_n 3
+# (7 taps) through the instantiation with the count at run time.
+POLY_CASES = ((HS_SHAPE, 8, 1.2), (HS_SHAPE, 5, 1.2), (RAGGED_SHAPE, 8, 1.6),
+              ((480, 640), 8, 1.2), ((540, 960), 5, 1.2),
+              ((270, 480), 5, 1.2), (HS_SHAPE, 3, 1.1))
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores.
 PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
@@ -344,17 +360,44 @@ def gated_bound(labels: np.ndarray, sweeps, batch):
     return bound(4 * px * (5 * batch + 3), ops)
 
 
-def ms_bound(shape, R, iters):
+def ms_bound(shape, R, query_iterations):
     # Only offsets within R of the query's drift can pass the spatial test:
     # the lattice points of a disc of radius R (1,257 at R = 20; around a
     # fractional drift the count differs by a few). Per query, iteration
     # and such offset: the spatial distance (3), the colour distance (8)
     # and the two tests (2); per disc row the dy term (2). The sums of the
     # points that pass depend on the data and are not counted, so this
-    # bound is low by up to 6 per offset.
+    # bound is low by up to 6 per offset. ``query_iterations``: the
+    # iterations the queries need, summed (ms_query_iterations): a query
+    # whose state comes back unchanged needs no more.
     px = shape[0] * shape[1]
     disc = sum(2 * math.isqrt(R * R - dy * dy) + 1 for dy in range(-R, R + 1))
-    return bound(4 * 8 * px, px * iters * (13 * disc + 2 * (2 * R + 1)))
+    return bound(4 * 8 * px,
+                 query_iterations * (13 * disc + 2 * (2 * R + 1)))
+
+
+def ms_query_iterations(lab, iters) -> int:
+    """The iterations the queries of ``lab`` need at R = MS_R, summed: a
+    query needs those up to the first whose (pos, col) repeat the previous
+    iteration's bit for bit, or ``iters``. The kernel stops a query once
+    its state (drift, colour) repeats, which pos and col show or which
+    rounding in pos hides, so it runs at least these."""
+    import torch
+
+    from tpuflow_torch.kernels import ms_filter
+
+    prev = need = None
+    for k in range(iters + 1):
+        pos, col = ms_filter.mean_shift_filter(lab, MS_R, MS_KI, k)
+        bits = torch.cat([pos.reshape(-1, 2), col.reshape(-1, 3)],
+                         1).contiguous().view(torch.int32)
+        if prev is None:
+            need = torch.full(bits.shape[:1], iters, device=bits.device)
+        else:
+            need = torch.where((bits == prev).all(1) & (need == iters), k,
+                               need)
+        prev = bits
+    return int(need.sum())
 
 
 def frames_1080p():
@@ -616,14 +659,10 @@ def phase_kernels(dev) -> dict:
     shapes and at the ragged KITTI size; both versions timed at each.
     Returns the numbers at the first (main-path) shape of each kernel."""
     import torch
-    import torch.nn.functional as F
 
-    from tpuflow_torch.core import borders as bd
-    from tpuflow_torch.kernels import (fb_kernels, hs_stencil, irls_stencil,
-                                       ms_filter, sepconv)
+    from tpuflow_torch.kernels import hs_stencil, irls_stencil
     from tpuflow_torch.solvers.black_anandan import (
         LAMBDA_D, LAMBDA_S, SIGMA_D_L0, SIGMA_S_L0, irls_sup)
-    from tpuflow_torch.solvers.farneback import _poly_exp_matrices
 
     out = {}
     hs_fuse = hs_stencil.DEFAULT_FUSE
@@ -694,42 +733,8 @@ def phase_kernels(dev) -> dict:
 
     sepconv_rows(dev, out)
 
-    # Library call: one correlation with five output channels, each a G^-1
-    # row folded into the three moment tap sets.
-    for shape, n, sigma in ((HS_SHAPE, 8, 1.2), (HS_SHAPE, 5, 1.2),
-                            (RAGGED_SHAPE, 8, 1.6)):
-        g, ginv = _poly_exp_matrices(n, sigma)
-        xs = np.arange(-n, n + 1, dtype=np.float64)
-        rows = ginv[1:6].copy()
-        rows[4] *= 0.5
-        taps = [sepconv.host_taps(t, torch.float32)
-                for t in (g, g * xs, g * xs * xs, rows)]
-        tg, tgx, tgxx = (t.astype(np.float64) for t in taps[:3])
-        # Moments [1, x, y, x^2, y^2, xy] as (row taps, column taps).
-        moments = ((tg, tg), (tg, tgx), (tgx, tg), (tg, tgxx), (tgxx, tg),
-                   (tgx, tgx))
-        weight, = f32(dev, np.stack([
-            sum(c * np.outer(a, b) for c, (a, b) in zip(r, moments))
-            for r in taps[3].reshape(5, 6).astype(np.float64)])[:, None])
-        img, = f32(dev, np.random.default_rng(n).uniform(0, 255, shape))
-        padded = bd.pad2d(img, n, bd.CLAMP)
-        kernel_row(out, "fb_poly_expansion", shape,
-                   lambda: fb_kernels.fb_poly_expansion(padded, g, g * xs,
-                                                        g * xs * xs, rows),
-                   lambda: fb_kernels.fb_poly_expansion_plain(
-                       padded, *taps[:3], taps[3].reshape(5, 6)),
-                   poly_bound(*padded.shape, 2 * n + 1, taps[3].reshape(5, 6)),
-                   library=lambda: F.conv2d(padded[None, None], weight),
-                   n=n)
-
-    for shape, winsize in ((HS_SHAPE, 48), (RAGGED_SHAPE, 64)):
-        m = winsize // 2
-        M, = f32(dev, well_conditioned_m(shape, winsize))
-        Mp = bd.pad2d(M, m, bd.CLAMP)
-        kernel_row(out, "fb_blur_solve", shape,
-                   lambda: fb_kernels.fb_blur_solve(Mp, winsize),
-                   lambda: fb_kernels.fb_blur_solve_plain(Mp, winsize),
-                   blur_bound(*Mp.shape[1:], winsize), winsize=winsize)
+    poly_rows(dev, out)
+    blur_rows(dev, out)
 
     phase_kernels_flagship(dev, out)
     phase_kernels_dist(dev, out)
@@ -777,6 +782,124 @@ def sepconv_rows(dev, out, usage: bool = True) -> None:
     if usage and not any(r["instantiation"] == [0, 0] for r in rows):
         raise AssertionError("no sepconv row runs the run-time tap count")
     out.setdefault("sep_conv2d_valid", {**rows[0], "rows": rows})
+
+
+def poly_rows(dev, out, usage: bool = True) -> None:
+    """``fb_poly_expansion`` at POLY_CASES on a 0-255 image, CLAMP-padded,
+    against its plain version, timed beside one F.conv2d with five output
+    channels, each a G^-1 row folded into the three moment tap sets (the
+    library call); ``usage`` adds blocks per SM and ptxas's registers and
+    spills of the instantiation each row runs. The first row is out's;
+    every row also stands in its ``rows``."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpuflow_torch.core import borders as bd
+    from tpuflow_torch.kernels import fb_kernels, sepconv
+    from tpuflow_torch.solvers.farneback import _poly_exp_matrices
+
+    rows = []
+    for shape, n, sigma in POLY_CASES:
+        g, ginv = _poly_exp_matrices(n, sigma)
+        xs = np.arange(-n, n + 1, dtype=np.float64)
+        ginv_rows = ginv[1:6].copy()
+        ginv_rows[4] *= 0.5
+        taps = [sepconv.host_taps(t, torch.float32)
+                for t in (g, g * xs, g * xs * xs, ginv_rows)]
+        tg, tgx, tgxx = (t.astype(np.float64) for t in taps[:3])
+        # Moments [1, x, y, x^2, y^2, xy] as (row taps, column taps).
+        moments = ((tg, tg), (tg, tgx), (tgx, tg), (tg, tgxx), (tgxx, tg),
+                   (tgx, tgx))
+        weight, = f32(dev, np.stack([
+            sum(c * np.outer(a, b) for c, (a, b) in zip(r, moments))
+            for r in taps[3].reshape(5, 6).astype(np.float64)])[:, None])
+        img, = f32(dev, np.random.default_rng(n).uniform(0, 255, shape))
+        padded = bd.pad2d(img, n, bd.CLAMP)
+        what = {"n": n}
+        if usage:
+            inst = fb_kernels.poly_instantiation(2 * n + 1)
+            what.update(instantiation=inst, **kernel_usage(
+                f"fb_poly_expansion_kernelILi{inst}E",
+                fb_kernels.poly_blocks_per_sm(2 * n + 1)))
+        one = {}
+        kernel_row(one, "fb_poly_expansion", shape,
+                   lambda: fb_kernels.fb_poly_expansion(
+                       padded, g, g * xs, g * xs * xs, ginv_rows),
+                   lambda: fb_kernels.fb_poly_expansion_plain(
+                       padded, *taps[:3], taps[3].reshape(5, 6)),
+                   poly_bound(*padded.shape, 2 * n + 1, taps[3].reshape(5, 6)),
+                   library=lambda: F.conv2d(padded[None, None], weight),
+                   **what)
+        rows.append({"shape": list(shape), **what,
+                     **one["fb_poly_expansion"]})
+    if usage and not any(r["instantiation"] == 0 for r in rows):
+        raise AssertionError("no poly row runs the run-time tap count")
+    out.setdefault("fb_poly_expansion", {**rows[0], "rows": rows})
+
+
+def blur_rows(dev, out) -> None:
+    """``fb_blur_solve`` against its plain version at the FB stream's
+    winsize 48 at 1080x1920 and the demo's 64 at 375x1242."""
+    from tpuflow_torch.core import borders as bd
+    from tpuflow_torch.kernels import fb_kernels
+
+    for shape, winsize in ((HS_SHAPE, 48), (RAGGED_SHAPE, 64)):
+        m = winsize // 2
+        M, = f32(dev, well_conditioned_m(shape, winsize))
+        Mp = bd.pad2d(M, m, bd.CLAMP)
+        kernel_row(out, "fb_blur_solve", shape,
+                   lambda: fb_kernels.fb_blur_solve(Mp, winsize),
+                   lambda: fb_kernels.fb_blur_solve_plain(Mp, winsize),
+                   blur_bound(*Mp.shape[1:], winsize), winsize=winsize)
+
+
+def ms_rows(dev, out, usage: bool = True) -> None:
+    """The mean-shift filter at R = MS_R on the flagship scene's middle
+    frame in Lab: against its plain version at one iteration on the whole
+    376x1240 frame and at MS_ITERS on the 96x160 crop (the plain version is
+    ~150,000 eager ops per iteration), and the main path's MS_ITERS on the
+    whole frame, timed; each bound counts the iterations the queries need
+    (ms_query_iterations). ``usage`` adds the query rows of a block the
+    launcher picks, blocks per SM and ptxas's registers and spills. The
+    first row is out's; every row also stands in its ``rows``."""
+    import torch
+
+    from tpuflow_torch.kernels import ms_filter
+    from tpuflow_torch.solvers import bm_flow
+
+    lab = bm_flow._to_lab(voronoi_frames()[0][1], 255.0)[1].to(dev)
+    crop = lab[BM_CROP].contiguous()
+    what = {"R": MS_R}
+    if usage:
+        E = ms_filter.window(MS_R, None)
+        th = ms_filter.tile_rows(E)
+        what.update(tile_rows=th, **kernel_usage(
+            "ms_filter_kernel", ms_filter.blocks_per_sm(E, th)))
+
+    rows = []
+    for x, iters in ((lab, 1), (crop, MS_ITERS)):
+        need = ms_query_iterations(x, iters)
+        one = {}
+        kernel_row(one, "mean_shift_filter", tuple(x.shape[:2]),
+                   lambda x=x, iters=iters: ms_filter.mean_shift_filter(
+                       x, MS_R, MS_KI, iters),
+                   lambda x=x, iters=iters: ms_filter.mean_shift_filter_plain(
+                       x, MS_R, MS_KI, iters),
+                   ms_bound(x.shape[:2], MS_R, need), plain_reps=1,
+                   iters=iters, query_iterations=need, **what)
+        rows.append({"shape": list(x.shape[:2]), "iters": iters,
+                     "query_iterations": need, **what,
+                     **one["mean_shift_filter"]})
+    need = ms_query_iterations(lab, MS_ITERS)
+    row = {"iters": MS_ITERS, "query_iterations": need, **what,
+           "ms": cuda_ms(lambda: ms_filter.mean_shift_filter(
+               lab, MS_R, MS_KI, MS_ITERS), reps=3, device_only=True),
+           "plain_ms": None, **ms_bound(BM_SHAPE, MS_R, need),
+           "library_ms": None}
+    log("kernels", kernel="mean_shift_filter", shape=BM_SHAPE, **row)
+    rows.append({"shape": list(BM_SHAPE), **row})
+    out.setdefault("mean_shift_filter", {**rows[0], "rows": rows})
+    torch.cuda.synchronize()
 
 
 def ba_level_shapes() -> list[tuple[int, int]]:
@@ -847,13 +970,10 @@ def phase_kernels_flagship(dev, out) -> None:
     """The flagship's two kernels against their plain versions: the gated
     IRLS (GATED_SWEEPS sweeps, fuse 16 and a remainder fuse, two
     directions and one) at the KITTI and the ragged size, on the scene's
-    own refine inputs; the mean-shift filter at R = 20, one iteration at
-    the KITTI size and eight on a crop (the plain version is ~150,000
-    eager ops per iteration), and the kernel alone at the main path's
-    eight iterations."""
+    own refine inputs; the mean-shift filter (:func:`ms_rows`)."""
     import torch
 
-    from tpuflow_torch.kernels import irls_stencil, ms_filter
+    from tpuflow_torch.kernels import irls_stencil
     from tpuflow_torch.solvers import bm_flow
 
     consts = (bm_flow.LAMBDA_D, bm_flow.LAMBDA_S, bm_flow.SIGMA_D_BM,
@@ -896,21 +1016,7 @@ def phase_kernels_flagship(dev, out) -> None:
                         u0, u0, gx, gy, it, labels, *sup, deep, *consts),
                     shape=shape, batch=batch, fuse=deep)
 
-    lab = bm_flow._to_lab(voronoi_frames()[0][1], 255.0)[1].to(dev)
-    crop = lab[BM_CROP].contiguous()
-    for x, iters in ((lab, 1), (crop, 8)):
-        kernel_row(out, "mean_shift_filter", tuple(x.shape[:2]),
-                   lambda x=x, iters=iters: ms_filter.mean_shift_filter(
-                       x, MS_R, MS_KI, iters),
-                   lambda x=x, iters=iters: ms_filter.mean_shift_filter_plain(
-                       x, MS_R, MS_KI, iters),
-                   ms_bound(x.shape[:2], MS_R, iters), plain_reps=1,
-                   iters=iters, R=MS_R)
-    ms = cuda_ms(lambda: ms_filter.mean_shift_filter(lab, MS_R, MS_KI, 8),
-                 reps=3, device_only=True)
-    log("kernels", kernel="mean_shift_filter", shape=BM_SHAPE, iters=8,
-        R=MS_R, ms=ms, **ms_bound(BM_SHAPE, MS_R, 8))
-    torch.cuda.synchronize()
+    ms_rows(dev, out)
 
 
 def exact(name: str, got, want) -> float:

@@ -13,120 +13,194 @@
 // Points outside the frame carry a colour sentinel farther than hr from
 // every real colour, so they fail the colour test without a mask.
 //
-// What bounds it on the H100: the work, not the bytes. Only the offsets
-// within R of the query's drift can pass the spatial test, about pi R^2 of
-// them (1,257 lattice points at R = 20), each ~13 flops and three loads:
-// at KITTI size ~4.7e9 tests over 8 iterations, while the frame is read
-// once and the outputs written once (~9 MB). Each thread therefore sweeps
-// only the (2 reach + 1)^2 box around its drift (reach = ceil(R)), clipped
-// to the square: an offset outside it is more than R from the drift and
-// fails the spatial test in float32 too, so skipping it is bitwise the
-// same. Queries never read each other's state, only the original frame,
-// so the whole iteration loop runs in one launch: a block stages its
-// 32x32 query tile plus an E-pixel halo of the three Lab planes in shared
-// memory once (3 x 112^2 x 4 B = 147 KB at E = 40), one thread per query
-// keeps its drift, colour and six sums in registers, and neighbouring
-// threads read neighbouring shared words. The build disables FMA
-// contraction and the sums follow the plain version's order, so the
-// result is bitwise its plain version.
+// What bounds it on the H100: instruction issue and shared-memory loads,
+// not bytes. The frame is read once and the outputs written once (~9 MB
+// at KITTI size), while each query tests ~1,257 points per iteration at
+// R = 20 (~4.7e9 tests over 8 iterations). The design cuts the
+// instructions and loads per test, and the tests:
+// - Only the disc is walked. In float32, d_sp = fl(fl(fl(dx - ex)^2) +
+//   ty2) is monotone in |fl(dx - ex)| on each side of ex, so the offsets
+//   of a row dy that pass the spatial test form one run of dx. Its ends
+//   come from sqrtf(hs2 - ty2) and are then moved by the exact float32
+//   test until they are tight, and clipped to [-E, E]; a row whose ty2
+//   exceeds hs2 has none. The inner loop runs the colour test alone, over
+//   the points the plain version can add, in its order.
+// - A point's colour is one 128-bit shared load: the block stages the
+//   three Lab planes interleaved as float4 (L, a, b, 0), with an odd pitch
+//   so that lanes on neighbouring rows fall in other banks.
+// - dx, dy and 1 are integers, and every partial sum of them is an exact
+//   float32 integer (|sum| <= (2E + 1)^2 E < 2^24), so they are summed in
+//   int, in any order: a row packs its count and its sum of dx + E into
+//   one int (count << 16 | sum), one add per point.
+// - An iteration is a function of the query's state (drift and colour)
+//   alone, so once an iteration gives the state back bit for bit, every
+//   later one would too: the query stops there (86% of the flagship
+//   scene's queries have by the 8th iteration; a warp stops when its last
+//   lane does).
+// - One block per SM: 32 query columns (a warp is one row of queries) by
+//   24 rows, fewer where a wide window's tile would not fit. A thread
+//   stages STAGE_BATCH points per round trip to device memory.
+// Queries never read each other's state, only the original frame, so the
+// whole iteration loop runs in one launch on the block's staged tile; each
+// thread keeps its query's drift, colour and sums in registers. The build
+// disables FMA contraction and the colour sums follow the plain version's
+// order (a failed test adds +-0 there, which leaves a sum unchanged), so
+// the result is bitwise its plain version.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void ms_filter_kernel(const float* __restrict__ lab,
-                                 const float* __restrict__ sentinel,
-                                 float* __restrict__ pos,
-                                 float* __restrict__ col, int h, int w,
-                                 int E, int reach, int iters, int tile,
-                                 float hs2, float hr2) {
-  extern __shared__ float smem[];
-  const int sw = tile + 2 * E;
-  const int n = sw * sw;
-  float* p0 = smem;
-  float* p1 = p0 + n;
-  float* p2 = p1 + n;
-  const float sent = *sentinel;
-  // Frame coordinates of the shared tile's (0, 0).
-  const int row0 = blockIdx.y * tile - E;
-  const int col0 = blockIdx.x * tile - E;
+constexpr int TW = 32;       // query columns of a block: one warp a row
+constexpr int MIN_TH = 1;    // query rows of a block, picked per launch
+constexpr int MAX_TH = 24;
+constexpr int STAGE_BATCH = 8;  // points a thread stages per round trip
+// The low 16 bits of a row's packed sum hold the sum of dx + E over its
+// points, at most (2E + 1) * 2E, which is below 2^16 for E <= 127.
+constexpr int COUNT_SHIFT = 16;
+constexpr int MAX_E = 127;
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int y = row0 + i / sw;
-    const int x = col0 + i % sw;
-    if (y >= 0 && y < h && x >= 0 && x < w) {
-      const size_t g = 3 * ((size_t)y * w + x);
-      p0[i] = lab[g];
-      p1[i] = lab[g + 1];
-      p2[i] = lab[g + 2];
-    } else {
-      p0[i] = sent;
-      p1[i] = sent;
-      p2[i] = sent;
+// The staged tile: point i's (L, a, b) as one float4, read in one 128-bit
+// shared load.
+struct Interleaved {
+  static constexpr int BYTES = 16;
+  float4* t;
+  __device__ Interleaved(void* smem, int) : t((float4*)smem) {}
+  __device__ void store(int i, float L, float a, float b) const {
+    t[i] = make_float4(L, a, b, 0.f);
+  }
+  __device__ float4 load(int i) const { return t[i]; }
+};
+using Layout = Interleaved;
+
+// The spatial test of offset dx in a row whose dy term is ty2, as the plain
+// version computes it.
+__device__ __forceinline__ bool in_disc(int dx, float ex, float ty2,
+                                        float hs2) {
+  const float tx = (float)dx - ex;
+  return tx * tx + ty2 <= hs2;
+}
+
+__global__ void __launch_bounds__(TW * MAX_TH, 1)
+    ms_filter_kernel(const float* __restrict__ lab,
+                     const float* __restrict__ sentinel,
+                     float* __restrict__ pos, float* __restrict__ col, int h,
+                     int w, int E, int reach, int iters, float hs2,
+                     float hr2) {
+  extern __shared__ float4 smem[];
+  const int th = blockDim.x / TW;
+  const int sh = th + 2 * E;
+  const int sw = TW + 2 * E;
+  const int pitch = sw | 1;
+  const Layout tile(smem, sh * pitch);
+  const float sent = *sentinel;
+  const int lx = threadIdx.x % TW;
+  const int ly = threadIdx.x / TW;
+  // Frame coordinates of the shared tile's (0, 0).
+  const int row0 = blockIdx.y * th - E;
+  const int col0 = blockIdx.x * TW - E;
+
+  // Staging: STAGE_BATCH points' loads in flight a thread, then their
+  // stores, so a block waits for a few round trips to device memory, not
+  // one a point.
+  for (int i0 = threadIdx.x; i0 < sh * sw; i0 += STAGE_BATCH * blockDim.x) {
+    float v[STAGE_BATCH][3];
+    int at[STAGE_BATCH];
+#pragma unroll
+    for (int b = 0; b < STAGE_BATCH; ++b) {
+      const int i = i0 + b * blockDim.x;
+      const int r = i / sw;
+      const int c = i - r * sw;
+      const int y = row0 + r;
+      const int x = col0 + c;
+      const bool in = i < sh * sw && y >= 0 && y < h && x >= 0 && x < w;
+      const float* p = lab + 3 * ((size_t)(in ? y : 0) * w + (in ? x : 0));
+      v[b][0] = in ? p[0] : sent;
+      v[b][1] = in ? p[1] : sent;
+      v[b][2] = in ? p[2] : sent;
+      at[b] = i < sh * sw ? r * pitch + c : -1;
     }
+#pragma unroll
+    for (int b = 0; b < STAGE_BATCH; ++b)
+      if (at[b] >= 0) tile.store(at[b], v[b][0], v[b][1], v[b][2]);
   }
   __syncthreads();
 
-  const int ly = threadIdx.x / tile;
-  const int lx = threadIdx.x % tile;
-  const int y = blockIdx.y * tile + ly;
-  const int x = blockIdx.x * tile + lx;
+  const int y = blockIdx.y * th + ly;
+  const int x = blockIdx.x * TW + lx;
   if (y >= h || x >= w) return;
-  const int center = (ly + E) * sw + (lx + E);
-  float c0 = p0[center];
-  float c1 = p1[center];
-  float c2 = p2[center];
+  const int center = (ly + E) * pitch + (lx + E);
+  const float4 own = tile.load(center);
+  float c0 = own.x;
+  float c1 = own.y;
+  float c2 = own.z;
   float ex = 0.f;
   float ey = 0.f;
+  const int key = (1 << COUNT_SHIFT) + E;
   for (int it = 0; it < iters; ++it) {
-    float s_dx = 0.f, s_dy = 0.f, s_n = 0.f;
     float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-    // An offset with |dx - ex| >= reach + 1 > R has d_sp >= (reach + 1)^2
-    // after float32 rounding (monotone, and (reach + 1)^2 is exact), which
-    // exceeds hs2: the plain version adds +-0 there.
-    const int x_lo = max(-E, (int)floorf(ex) - reach);
-    const int x_hi = min(E, (int)ceilf(ex) + reach);
+    int s_n = 0, s_dx = 0, s_dy = 0;
+    // A row with |dy - ey| >= reach + 1 > R has ty2 >= (reach + 1)^2 >
+    // hs2 after float32 rounding (monotone, and (reach + 1)^2 is exact).
     const int y_lo = max(-E, (int)floorf(ey) - reach);
     const int y_hi = min(E, (int)ceilf(ey) + reach);
     for (int dy = y_lo; dy <= y_hi; ++dy) {
-      const float fdy = (float)dy;
-      const float ty = fdy - ey;
+      const float ty = (float)dy - ey;
       const float ty2 = ty * ty;
-      const int row = center + dy * sw;
-      for (int dx = x_lo; dx <= x_hi; ++dx) {
-        const float fdx = (float)dx;
-        const float tx = fdx - ex;
-        const float d_sp = tx * tx + ty2;
-        const float q0 = p0[row + dx];
-        const float q1 = p1[row + dx];
-        const float q2 = p2[row + dx];
-        const float a = q0 - c0;
-        const float b = q1 - c1;
-        const float c = q2 - c2;
-        const float d_cl = a * a + b * b + c * c;
-        // A failed test adds +-0 in the plain version, which leaves every
-        // sum unchanged: skipping it is bitwise the same.
-        if (d_sp <= hs2 && d_cl <= hr2) {
-          s_dx = s_dx + fdx;
-          s_dy = s_dy + fdy;
-          s_n = s_n + 1.f;
-          s0 = s0 + q0;
-          s1 = s1 + q1;
-          s2 = s2 + q2;
+      // fl(tx^2 + ty2) >= ty2: no offset of this row passes.
+      if (!(ty2 <= hs2)) continue;
+      const float half = sqrtf(hs2 - ty2);
+      int lo = (int)ceilf(ex - half);
+      int hi = (int)floorf(ex + half);
+      // The estimate is tight unless rounding put an end one off: test
+      // both ends and their outer neighbours, and move only if one fails.
+      if (!(in_disc(lo, ex, ty2, hs2) & !in_disc(lo - 1, ex, ty2, hs2) &
+            in_disc(hi, ex, ty2, hs2) & !in_disc(hi + 1, ex, ty2, hs2))) {
+        while (in_disc(lo - 1, ex, ty2, hs2)) --lo;
+        while (lo <= hi && !in_disc(lo, ex, ty2, hs2)) ++lo;
+        while (in_disc(hi + 1, ex, ty2, hs2)) ++hi;
+        while (hi >= lo && !in_disc(hi, ex, ty2, hs2)) --hi;
+      }
+      lo = max(lo, -E);
+      hi = min(hi, E);
+      // tag = key + dx runs along the row: the packed sum's term and,
+      // less base, the point's tile index.
+      const int base = center + dy * pitch - key;
+      const int end = key + hi + 1;
+      int packed = 0;
+#pragma unroll 4
+      for (int tag = key + lo; tag < end; ++tag) {
+        const float4 q = tile.load(base + tag);
+        const float a = q.x - c0;
+        const float b = q.y - c1;
+        const float c = q.z - c2;
+        if (a * a + b * b + c * c <= hr2) {
+          s0 = s0 + q.x;
+          s1 = s1 + q.y;
+          s2 = s2 + q.z;
+          packed += tag;
         }
       }
+      const int count = packed >> COUNT_SHIFT;
+      s_n += count;
+      s_dx += (packed & ((1 << COUNT_SHIFT) - 1)) - E * count;
+      s_dy += dy * count;
     }
-    const float nn = fmaxf(s_n, 1.f);
-    if (s_n > 0.f) {
-      ex = s_dx / nn;
-      ey = s_dy / nn;
-    } else {
-      ex = -(float)x;
-      ey = -(float)y;
-    }
-    c0 = s0 / nn;
-    c1 = s1 / nn;
-    c2 = s2 / nn;
+    const float nn = fmaxf((float)s_n, 1.f);
+    const float nx = s_n > 0 ? (float)s_dx / nn : -(float)x;
+    const float ny = s_n > 0 ? (float)s_dy / nn : -(float)y;
+    const float n0 = s0 / nn, n1 = s1 / nn, n2 = s2 / nn;
+    const bool fixed = __float_as_int(nx) == __float_as_int(ex) &&
+                       __float_as_int(ny) == __float_as_int(ey) &&
+                       __float_as_int(n0) == __float_as_int(c0) &&
+                       __float_as_int(n1) == __float_as_int(c1) &&
+                       __float_as_int(n2) == __float_as_int(c2);
+    ex = nx;
+    ey = ny;
+    c0 = n0;
+    c1 = n1;
+    c2 = n2;
+    if (fixed) break;
   }
   const size_t g = (size_t)y * w + x;
   pos[2 * g] = (float)x + ex;
@@ -136,23 +210,42 @@ __global__ void ms_filter_kernel(const float* __restrict__ lab,
   col[3 * g + 2] = c2;
 }
 
+size_t smem_bytes(int E, int th) {
+  return Layout::BYTES * (size_t)(th + 2 * E) * (size_t)((TW + 2 * E) | 1);
+}
+
 }  // namespace
 
 extern "C" int ms_filter_launch(const void* lab, const void* sentinel,
                                 void* pos, void* col, int h, int w, int E,
-                                int reach, int iters, int tile, float hs2,
+                                int reach, int iters, int th, float hs2,
                                 float hr2, void* stream) {
-  const size_t smem =
-      3 * sizeof(float) * (size_t)(tile + 2 * E) * (size_t)(tile + 2 * E);
+  if (E < 0 || E > MAX_E || th < MIN_TH || th > MAX_TH)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(E, th);
   cudaError_t err = cudaFuncSetAttribute(
       ms_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((w + tile - 1) / tile, (h + tile - 1) / tile);
-  ms_filter_kernel<<<grid, tile * tile, smem, (cudaStream_t)stream>>>(
+  const dim3 grid((w + TW - 1) / TW, (h + th - 1) / th);
+  ms_filter_kernel<<<grid, TW * th, smem, (cudaStream_t)stream>>>(
       (const float*)lab, (const float*)sentinel, (float*)pos, (float*)col, h,
-      w, E, reach, iters, tile, hs2, hr2);
+      w, E, reach, iters, hs2, hr2);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the kernel one SM holds at once for window E and th query rows,
+// or -(CUDA error).
+extern "C" int ms_filter_blocks_per_sm(int E, int th) {
+  const size_t smem = smem_bytes(E, th);
+  int blocks = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      ms_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, ms_filter_kernel, TW * th, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 extern "C" const char* ms_filter_error_string(int code) {

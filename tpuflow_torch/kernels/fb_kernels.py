@@ -16,9 +16,11 @@ Counterparts of ``tpuflow/kernels/fb_kernels.py``:
 
 Taps and coefficients are rounded once on the host to the image's dtype.
 Both versions multiply by the rounded values and add in the same order,
-so on the card each kernel (``csrc/fb_kernels.cu``, one launch each)
-matches its plain version bitwise. CPU tensors take the plain versions;
-CUDA tensors take the kernels or raise.
+so on the card each kernel (``csrc/fb_kernels.cu``, one launch each; the
+expansion streams each column, then each row, past register accumulators
+in tap order, with poly_n 5 and 8 compiled in) matches its plain version
+bitwise. CPU tensors take the plain versions; CUDA tensors take the
+kernels or raise.
 """
 
 from __future__ import annotations
@@ -33,22 +35,45 @@ from tpuflow_torch.kernels.sepconv import _pass, host_taps
 
 # Launches of each CUDA kernel in this process (never the plain versions).
 LAUNCHES = {"fb_poly_expansion": 0, "fb_blur_solve": 0}
-# Output tile of one block and its thread count, for both kernels.
+# Blur-solve's output tile of one block and its thread count.
 TILE_H = 32
 TILE_W = 64
 THREADS = 256
+# The expansion's output tile, threads and outputs a thread accumulates in
+# a pass (csrc/fb_kernels.cu's PH, PW, P_THREADS, PR): the vertical passes
+# put POLY_TILE_H x (POLY_TILE_W + taps - 1) intermediates of each of g,
+# gx, gxx in shared memory (rows of an odd pitch), which three of the
+# outputs then take over; the other two have POLY_TILE_H x (POLY_TILE_W +
+# 1) tiles of their own.
+POLY_TILE_H = 16
+POLY_TILE_W = 128
+POLY_THREADS = 256
+POLY_ACC = 8
 # Taps the poly kernel's parameter struct holds (2n + 1 <= 64);
 # poly_smem_bytes(MAX_POLY_TAPS) fits one block.
 MAX_POLY_TAPS = 64
+# Tap counts compiled into an instantiation of their own
+# (csrc/fb_kernels.cu's poly_kernel_for): poly_n 5 and 8. Every other
+# count takes the instantiation with the count at run time; both sum in
+# the same order.
+POLY_COMPILED_TAPS = (11, 17)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("fb_kernels")
+def poly_instantiation(taps: int) -> int:
+    """The template argument of the poly kernel that runs ``taps`` taps:
+    the count where it is compiled in, else 0."""
+    return taps if taps in POLY_COMPILED_TAPS else 0
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from csrc/fb_kernels.cu."""
     lib.fb_poly_expansion_launch.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
         + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3
         + [ctypes.c_void_p])
     lib.fb_poly_expansion_launch.restype = ctypes.c_int
+    lib.fb_poly_expansion_blocks_per_sm.argtypes = [ctypes.c_int]
+    lib.fb_poly_expansion_blocks_per_sm.restype = ctypes.c_int
     lib.fb_blur_solve_launch.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -58,8 +83,22 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _lib() -> ctypes.CDLL:
+    return _bind(_build.load("fb_kernels"))
+
+
 def poly_smem_bytes(taps: int) -> int:
-    return 4 * (TILE_H + taps - 1 + 3 * TILE_H) * (TILE_W + taps - 1)
+    return 4 * POLY_TILE_H * (3 * ((POLY_TILE_W + taps - 1) | 1)
+                              + 2 * (POLY_TILE_W + 1))
+
+
+def poly_blocks_per_sm(taps: int) -> int:
+    """Blocks of the poly kernel one SM of the current card holds at once
+    for ``taps`` taps (CUDA's occupancy calculator)."""
+    lib = _lib()
+    n = lib.fb_poly_expansion_blocks_per_sm(taps)
+    _build.check_launch(lib, "fb_kernels", -n if n < 0 else 0)
+    return n
 
 
 def blur_smem_bytes(winsize: int) -> int:
@@ -131,7 +170,7 @@ def fb_poly_expansion(padded: torch.Tensor, g, gx, gxx, ginv):
         rc = lib.fb_poly_expansion_launch(
             padded.data_ptr(), *(o.data_ptr() for o in outs), hp, wp,
             g.ctypes.data, gx.ctypes.data, gxx.ctypes.data, n_taps,
-            ginv.ctypes.data, TILE_H, TILE_W, THREADS,
+            ginv.ctypes.data, POLY_TILE_H, POLY_TILE_W, POLY_THREADS,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, "fb_kernels", rc)
     LAUNCHES["fb_poly_expansion"] += 1

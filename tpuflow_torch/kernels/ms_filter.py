@@ -13,11 +13,12 @@ colour, so a point outside the frame always fails the colour test. A
 query whose window empties jumps to global (0, 0), as in the reference.
 
 :func:`mean_shift_filter` runs on a CUDA tensor through
-``csrc/ms_filter.cu`` (one launch for all iterations; each query sweeps
-only the box of offsets within ceil(R) of its drift, where every other
-offset fails the spatial test; the source says what bounds it on the H100
-and how the design answers), on a CPU tensor
-through :func:`mean_shift_filter_plain`.
+``csrc/ms_filter.cu`` (one launch for all iterations; each query walks,
+row by row, only the run of offsets that passes the spatial test, its
+ends found by the exact float32 test, tests colour there, and stops at
+the first iteration that gives its state back bit for bit; the source
+says what bounds it on the H100 and how the design answers), on a CPU
+tensor through :func:`mean_shift_filter_plain`.
 """
 
 from __future__ import annotations
@@ -31,25 +32,60 @@ from tpuflow_torch.kernels import _build
 
 # Launches of the CUDA kernel in this process (never the plain version).
 LAUNCHES = 0
-# A block's TILE x TILE query pixels (one thread each); the shared tile is
-# the core plus an E-pixel halo of the three Lab planes: 3 * 4 * (TILE + 2E)^2
-# bytes.
-TILE = 32
+# A block's queries (one thread each): TILE_W columns (a warp is one row)
+# by TILE_H rows, fewer where a wide window's tile would not fit one block
+# (csrc/ms_filter.cu's TW, MAX_TH). The shared tile is the queries plus an
+# E-pixel halo, POINT_BYTES a point (L, a, b interleaved as a float4), in
+# rows of an odd pitch.
+TILE_W, TILE_H = 32, 24
+POINT_BYTES = 16
+# The widest window the kernel's packed row sums hold (its launcher
+# refuses more; shared memory already caps E at 52).
+MAX_E = 127
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("ms_filter")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from csrc/ms_filter.cu."""
     lib.ms_filter_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
         + [ctypes.c_void_p])
     lib.ms_filter_launch.restype = ctypes.c_int
+    lib.ms_filter_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+    lib.ms_filter_blocks_per_sm.restype = ctypes.c_int
     lib.ms_filter_error_string.argtypes = [ctypes.c_int]
     lib.ms_filter_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def smem_bytes(E: int) -> int:
-    return 3 * 4 * (TILE + 2 * E) ** 2
+def _lib() -> ctypes.CDLL:
+    return _bind(_build.load("ms_filter"))
+
+
+def smem_bytes(E: int, tile_h: int) -> int:
+    """Shared memory of one block of ``tile_h`` query rows at window E."""
+    return POINT_BYTES * (tile_h + 2 * E) * ((TILE_W + 2 * E) | 1)
+
+
+def tile_rows(E: int) -> int:
+    """The query rows of a block at window E: TILE_H, or the most whose
+    tile fits one block's shared memory. Raises if not one row fits."""
+    th = TILE_H
+    while th and smem_bytes(E, th) > _build.MAX_SMEM_BYTES:
+        th -= 1
+    if not th:
+        raise ValueError(f"mean_shift_filter: window E={E} needs "
+                         f"{smem_bytes(E, 1)} B of shared memory per block "
+                         f"(> {_build.MAX_SMEM_BYTES})")
+    return th
+
+
+def blocks_per_sm(E: int, tile_h: int) -> int:
+    """Blocks of the kernel one SM of the current card holds at once
+    (CUDA's occupancy calculator)."""
+    lib = _lib()
+    n = lib.ms_filter_blocks_per_sm(E, tile_h)
+    _build.check_launch(lib, "ms_filter", -n if n < 0 else 0)
+    return n
 
 
 def window(kernel_spatial: int, margin: int | None) -> int:
@@ -132,13 +168,9 @@ def mean_shift_filter(lab: torch.Tensor, kernel_spatial: int = 20,
     from tpuflow_torch.segmentation.meanshift import _color_sentinel
 
     E = window(kernel_spatial, margin)
-    smem = smem_bytes(E)
-    if smem > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"mean_shift_filter: window E={E} needs {smem} B of "
-                         "shared memory per block "
-                         f"(> {_build.MAX_SMEM_BYTES})")
-    lib = _lib()
     h, w = lab.shape[:2]
+    th = tile_rows(E)
+    lib = _lib()
     sentinel = _color_sentinel(lab, kernel_intensity)
     pos = torch.empty((h, w, 2), dtype=lab.dtype, device=lab.device)
     col = torch.empty_like(lab)
@@ -146,8 +178,7 @@ def mean_shift_filter(lab: torch.Tensor, kernel_spatial: int = 20,
         rc = lib.ms_filter_launch(
             lab.data_ptr(), sentinel.data_ptr(), pos.data_ptr(),
             col.data_ptr(), h, w, E, math.ceil(kernel_spatial), int(iters),
-            TILE,
-            float(kernel_spatial) ** 2, float(kernel_intensity) ** 2,
+            th, float(kernel_spatial) ** 2, float(kernel_intensity) ** 2,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, "ms_filter", rc)
     LAUNCHES += 1

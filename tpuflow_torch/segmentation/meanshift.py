@@ -30,9 +30,10 @@ def _color_sentinel(lab: torch.Tensor,
     """Pad value for the frame borders, a 0-d tensor on ``lab``'s device:
     farther than ``kernel_intensity`` from EVERY real colour, so a point
     read outside the image fails the colour-radius test by construction
-    (no validity mask)."""
-    return lab.abs().max() + torch.tensor(float(kernel_intensity) + 1.0,
-                                          dtype=lab.dtype, device=lab.device)
+    (no validity mask). The offset is a Python scalar, rounded to
+    ``lab``'s dtype as a 0-d tensor of it would be: no host-to-device
+    copy, which would synchronise the stream."""
+    return lab.abs().max() + (float(kernel_intensity) + 1.0)
 
 
 @dataclass
