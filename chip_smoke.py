@@ -29,18 +29,26 @@ Phases, each printing one line of its own numbers:
    1080x1920 with 48, 17, 15, 9, 3 and 48x15 taps and at 375x1242 with 64
    (blocks per SM, registers and spills of the instantiation each runs:
    15, 48 and 64 have their count compiled in, the others take it at run
-   time; every row also in the kernels line's ``rows``); poly expansion
-   with n = 8 (17 taps) at 1080x1920, 375x1242 and 480x640, n = 5 (11
-   taps) at 1080x1920, 540x960 and 270x480 (both counts compiled in) and
-   n = 3 (7 taps, the count at run time), with the blocks per SM,
-   registers and spills of each row's instantiation (``poly_rows``, every
-   row in the kernels line's ``rows``); blur-solve at 1080x1920 with
-   winsize 48 and at 375x1242 with 64; the gated IRLS 256 sweeps at
-   376x1240 and 375x1242, fuse 16 and 15, one and two directions, on the
-   flagship scene's own refine inputs; the mean-shift filter at R = 20 for one
-   iteration at 376x1240 and eight on a 96x160 crop, and the main path's
-   eight at 376x1240 timed, with the launcher's query rows per block,
-   blocks per SM, registers and spills (``ms_rows``); the sharded solvers'
+   time), 161 taps at 256x320 (from device memory) and 701 at 64x96 (the
+   wide form, two launches; every row also in the kernels line's
+   ``rows``); poly expansion with n = 8 (17 taps) at 1080x1920, 375x1242
+   and 480x640, n = 5 (11 taps) at 1080x1920, 540x960 and 270x480 (both
+   counts compiled in), n = 3 (7 taps, the count at run time), n = 40 (81
+   taps, from device memory) at 256x320 and n = 500 at 16x32 (the wide
+   form), with the blocks per SM, registers and spills of each row's
+   instantiation (``poly_rows``, every row in the kernels line's
+   ``rows``); blur-solve at 1080x1920 with winsize 48 (compiled in) and
+   15 (run time), at 375x1242 with 64 (compiled in), 200 at 256x320 and
+   640 at 48x64 (the wide form), likewise (``blur_rows``); each sepconv,
+   poly and blur row also counts its launches (one, two in a wide form);
+   the gated IRLS 256 sweeps at 376x1240 and 375x1242, fuse 16 and 15,
+   one and two directions, on the flagship scene's own refine inputs; the
+   mean-shift filter at R = 20 for one iteration at 376x1240 and eight on
+   a 96x160 crop, in its wide form at
+   R = 30 (E = 60, 2 iterations, 64x96) and R = 64 (E = 128, 1 iteration,
+   32x48) on crops of the flagship frame, and the main path's eight at
+   376x1240 timed, with the launcher's query rows per block, blocks per
+   SM, registers and spills (``ms_rows``); the sharded solvers'
    tile sweeps on one whole-frame tile at origin (-need, -need) (HS 100
    sweeps at 2160x3840, fuse 5; IRLS 512 sweeps at 376x1240, fuse 16),
    each with a zero pad of (u, v) between launches, as a 1x1 mesh's halo
@@ -182,11 +190,19 @@ WIDE_WINDOWS, WIDE_SWEEPS, WIDE_ITERS = (65, 129), 3, 10
 SEP_TAPS = ((HS_SHAPE, 48, 48), (HS_SHAPE, 17, 17), (HS_SHAPE, 15, 15),
             (RAGGED_SHAPE, 64, 64), (HS_SHAPE, 9, 9), (HS_SHAPE, 3, 3),
             (HS_SHAPE, 48, 15))
+# ... and past the kernel's parameter struct (161 taps, from device
+# memory) and past its staged tile (701 taps, the wide form, two launches),
+# on small frames.
+SEP_WIDE_TAPS = (((256, 320), 161, 161), ((64, 96), 701, 701))
 # The resident pair's bitwise checks: windows, frames and sweeps.
 RESIDENT_WINDOWS, RESIDENT_ITERS = (3, 5, 65), (HS_ITERS, HS_ITERS - 1)
 # The flagship's mean-shift filter: R, colour radius and iterations
 # (segmentation/meanshift.py's defaults).
 MS_R, MS_KI, MS_ITERS = 20, 16.0 / 255.0, 8
+# Mean-shift windows past the staged form (crop of the flagship's middle
+# frame from BM_CROP's corner, R, iterations; the default margin): E = 60
+# and E = 128 (past the staged form's packed row sums too).
+MS_WIDE = (((64, 96), 30, 2), ((32, 48), 64, 1))
 # Poly expansion's rows (output shape, poly_n, poly_sigma): poly_n 8 (17
 # taps, compiled in) at the FB stream's 1080x1920, the demo's size (the
 # ragged 375x1242) and dense_flow_stream's 480x640; poly_n 5 (11 taps,
@@ -195,6 +211,18 @@ MS_R, MS_KI, MS_ITERS = 20, 16.0 / 255.0, 8
 POLY_CASES = ((HS_SHAPE, 8, 1.2), (HS_SHAPE, 5, 1.2), (RAGGED_SHAPE, 8, 1.6),
               ((480, 640), 8, 1.2), ((540, 960), 5, 1.2),
               ((270, 480), 5, 1.2), (HS_SHAPE, 3, 1.1))
+# ... and past the parameter struct (n = 40, 81 taps from device memory)
+# and past the staged tile (n = 500, 1,001 taps: the wide form), on small
+# frames.
+POLY_WIDE_CASES = (((256, 320), 40, 6.4), ((16, 32), 500, 75.0))
+# Blur-solve's rows (output shape, winsize): the FB stream's 48 at
+# 1080x1920 and the demo's 64 at 375x1242 (both compiled in), 15 at
+# 1080x1920 (the run-time winsize), 200 (run time, past the parent
+# kernel's shared-memory ceiling) and 640 (the wide form, two launches) on
+# small frames. BLUR_AB: the rows the parent's kernel also takes.
+BLUR_CASES = ((HS_SHAPE, 48), (RAGGED_SHAPE, 64), (HS_SHAPE, 15),
+              ((256, 320), 200), ((48, 64), 640))
+BLUR_AB = BLUR_CASES[:3]
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores.
 PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
@@ -376,19 +404,19 @@ def ms_bound(shape, R, query_iterations):
                  query_iterations * (13 * disc + 2 * (2 * R + 1)))
 
 
-def ms_query_iterations(lab, iters) -> int:
-    """The iterations the queries of ``lab`` need at R = MS_R, summed: a
-    query needs those up to the first whose (pos, col) repeat the previous
-    iteration's bit for bit, or ``iters``. The kernel stops a query once
-    its state (drift, colour) repeats, which pos and col show or which
-    rounding in pos hides, so it runs at least these."""
+def ms_query_iterations(lab, iters, R=MS_R) -> int:
+    """The iterations the queries of ``lab`` need at radius R (the default
+    margin), summed: a query needs those up to the first whose (pos, col)
+    repeat the previous iteration's bit for bit, or ``iters``. The kernel
+    stops a query once its state (drift, colour) repeats, which pos and
+    col show or which rounding in pos hides, so it runs at least these."""
     import torch
 
     from tpuflow_torch.kernels import ms_filter
 
     prev = need = None
     for k in range(iters + 1):
-        pos, col = ms_filter.mean_shift_filter(lab, MS_R, MS_KI, k)
+        pos, col = ms_filter.mean_shift_filter(lab, R, MS_KI, k)
         bits = torch.cat([pos.reshape(-1, 2), col.reshape(-1, 3)],
                          1).contiguous().view(torch.int32)
         if prev is None:
@@ -743,19 +771,22 @@ def phase_kernels(dev) -> dict:
     return out
 
 
-def sepconv_rows(dev, out, usage: bool = True) -> None:
-    """``sep_conv2d_valid`` at SEP_TAPS (a box of ky and a Gaussian of kx)
-    against its plain version, timed beside one F.conv2d with the outer
-    product ky x kx (the library call); ``usage`` adds blocks per SM and
-    ptxas's registers and spills of the instantiation each row runs. The
-    first row is out's; every row also stands in its ``rows``."""
+def sepconv_rows(dev, out, usage: bool = True,
+                 cases=SEP_TAPS + SEP_WIDE_TAPS) -> None:
+    """``sep_conv2d_valid`` at SEP_TAPS and SEP_WIDE_TAPS (a box of ky and a
+    Gaussian of kx) against its plain version, timed beside one F.conv2d
+    with the outer product ky x kx (the library call), with its launches
+    (one, two in the wide form); ``usage`` adds blocks per SM and ptxas's
+    registers and spills of the instantiation each row runs (the wide
+    form: its pass kernel's, blocks per SM not taken). The first row is
+    out's; every row also stands in its ``rows``."""
     import torch
     import torch.nn.functional as F
 
     from tpuflow_torch.kernels import sepconv
 
     rows = []
-    for shape, nky, nkx in SEP_TAPS:
+    for shape, nky, nkx in cases:
         rng = np.random.default_rng(nky if nky == nkx else 1000 * nky
                                     + nkx)
         padded, = f32(dev, rng.uniform(0, 255, (shape[0] + nky - 1,
@@ -765,12 +796,21 @@ def sepconv_rows(dev, out, usage: bool = True) -> None:
         gauss /= gauss.sum()
         ky, kx = (sepconv.host_taps(t, torch.float32) for t in (box, gauss))
         k2, = f32(dev, np.outer(ky, kx)[None, None])
-        what = {"taps": (nky, nkx)}
-        if usage:
+        form = sepconv.form_for(nky, nkx)
+        what = {"taps": (nky, nkx), "form": form,
+                "launches_per_call": launched(
+                    "sep_conv2d_valid",
+                    lambda: sepconv.sep_conv2d_valid(padded, box, gauss),
+                    1 if form == "staged" else 2, taps=(nky, nkx))}
+        if usage and form == "staged":
             inst = sepconv.instantiation(nky, nkx)
             what.update(instantiation=list(inst), **kernel_usage(
-                "sep_conv2d_valid_kernelILi{}ELi{}E".format(*inst),
+                "sep_conv2d_valid_kernelILi{}ELi{}E".format(
+                    *(str(i).replace("-", "n") for i in inst)),
                 sepconv.blocks_per_sm(nky, nkx)))
+        elif usage:
+            what.update(instantiation=form, **kernel_usage(
+                "sep_wide_pass_kernel", None))
         one = {}
         kernel_row(one, "sep_conv2d_valid", shape,
                    lambda: sepconv.sep_conv2d_valid(padded, box, gauss),
@@ -784,13 +824,16 @@ def sepconv_rows(dev, out, usage: bool = True) -> None:
     out.setdefault("sep_conv2d_valid", {**rows[0], "rows": rows})
 
 
-def poly_rows(dev, out, usage: bool = True) -> None:
-    """``fb_poly_expansion`` at POLY_CASES on a 0-255 image, CLAMP-padded,
-    against its plain version, timed beside one F.conv2d with five output
-    channels, each a G^-1 row folded into the three moment tap sets (the
-    library call); ``usage`` adds blocks per SM and ptxas's registers and
-    spills of the instantiation each row runs. The first row is out's;
-    every row also stands in its ``rows``."""
+def poly_rows(dev, out, usage: bool = True,
+              cases=POLY_CASES + POLY_WIDE_CASES) -> None:
+    """``fb_poly_expansion`` at POLY_CASES and POLY_WIDE_CASES on a 0-255
+    image, CLAMP-padded, against its plain version, timed beside one
+    F.conv2d with five output channels, each a G^-1 row folded into the
+    three moment tap sets (the library call), with its launches (one, two
+    in the wide form); ``usage`` adds blocks per SM and ptxas's registers
+    and spills of the instantiation each row runs (the wide form: its two
+    kernels', blocks per SM not taken). The first row is out's; every row
+    also stands in its ``rows``."""
     import torch
     import torch.nn.functional as F
 
@@ -799,7 +842,7 @@ def poly_rows(dev, out, usage: bool = True) -> None:
     from tpuflow_torch.solvers.farneback import _poly_exp_matrices
 
     rows = []
-    for shape, n, sigma in POLY_CASES:
+    for shape, n, sigma in cases:
         g, ginv = _poly_exp_matrices(n, sigma)
         xs = np.arange(-n, n + 1, dtype=np.float64)
         ginv_rows = ginv[1:6].copy()
@@ -815,12 +858,22 @@ def poly_rows(dev, out, usage: bool = True) -> None:
             for r in taps[3].reshape(5, 6).astype(np.float64)])[:, None])
         img, = f32(dev, np.random.default_rng(n).uniform(0, 255, shape))
         padded = bd.pad2d(img, n, bd.CLAMP)
-        what = {"n": n}
-        if usage:
+        form = fb_kernels.poly_form(2 * n + 1)
+        what = {"n": n, "form": form, "launches_per_call": launched(
+            "fb_poly_expansion", lambda: fb_kernels.fb_poly_expansion(
+                padded, g, g * xs, g * xs * xs, ginv_rows),
+            1 if form == "staged" else 2, n=n)}
+        if usage and form == "staged":
             inst = fb_kernels.poly_instantiation(2 * n + 1)
             what.update(instantiation=inst, **kernel_usage(
-                f"fb_poly_expansion_kernelILi{inst}E",
+                "fb_poly_expansion_kernelILi{}E".format(
+                    str(inst).replace("-", "n")),
                 fb_kernels.poly_blocks_per_sm(2 * n + 1)))
+        elif usage:
+            what.update(instantiation=form, **{
+                f"{part}_{k}": v for part in ("rows", "cols")
+                for k, v in kernel_usage(f"fb_poly_wide_{part}_kernel",
+                                         None).items()})
         one = {}
         kernel_row(one, "fb_poly_expansion", shape,
                    lambda: fb_kernels.fb_poly_expansion(
@@ -837,20 +890,44 @@ def poly_rows(dev, out, usage: bool = True) -> None:
     out.setdefault("fb_poly_expansion", {**rows[0], "rows": rows})
 
 
-def blur_rows(dev, out) -> None:
-    """``fb_blur_solve`` against its plain version at the FB stream's
-    winsize 48 at 1080x1920 and the demo's 64 at 375x1242."""
+def blur_rows(dev, out, usage: bool = True, cases=BLUR_CASES) -> None:
+    """``fb_blur_solve`` against its plain version at BLUR_CASES (each
+    CLAMP-padded by winsize // 2), with its launches (one, two in the
+    wide form); ``usage`` adds blocks per SM and ptxas's registers and
+    spills of the instantiation each row runs (the wide form: its two
+    kernels', blocks per SM not taken). The first row is out's; every row
+    also stands in its ``rows``."""
     from tpuflow_torch.core import borders as bd
     from tpuflow_torch.kernels import fb_kernels
 
-    for shape, winsize in ((HS_SHAPE, 48), (RAGGED_SHAPE, 64)):
+    rows = []
+    for shape, winsize in cases:
         m = winsize // 2
         M, = f32(dev, well_conditioned_m(shape, winsize))
         Mp = bd.pad2d(M, m, bd.CLAMP)
-        kernel_row(out, "fb_blur_solve", shape,
+        form = fb_kernels.blur_form(winsize)
+        what = {"winsize": winsize, "form": form,
+                "launches_per_call": launched(
+                    "fb_blur_solve",
+                    lambda: fb_kernels.fb_blur_solve(Mp, winsize),
+                    1 if form == "staged" else 2, winsize=winsize)}
+        if usage and form == "staged":
+            inst = fb_kernels.blur_instantiation(winsize)
+            what.update(instantiation=inst, **kernel_usage(
+                f"fb_blur_solve_kernelILi{inst}E",
+                fb_kernels.blur_blocks_per_sm(winsize)))
+        elif usage:
+            what.update(instantiation=form, **{
+                f"{part}_{k}": v for part in ("rows", "solve")
+                for k, v in kernel_usage(f"fb_blur_wide_{part}_kernel",
+                                         None).items()})
+        one = {}
+        kernel_row(one, "fb_blur_solve", shape,
                    lambda: fb_kernels.fb_blur_solve(Mp, winsize),
                    lambda: fb_kernels.fb_blur_solve_plain(Mp, winsize),
-                   blur_bound(*Mp.shape[1:], winsize), winsize=winsize)
+                   blur_bound(*Mp.shape[1:], winsize), **what)
+        rows.append({"shape": list(shape), **what, **one["fb_blur_solve"]})
+    out.setdefault("fb_blur_solve", {**rows[0], "rows": rows})
 
 
 def ms_rows(dev, out, usage: bool = True) -> None:
@@ -889,6 +966,32 @@ def ms_rows(dev, out, usage: bool = True) -> None:
                    iters=iters, query_iterations=need, **what)
         rows.append({"shape": list(x.shape[:2]), "iters": iters,
                      "query_iterations": need, **what,
+                     **one["mean_shift_filter"]})
+    for (h, w), R, iters in MS_WIDE:
+        x = lab[BM_CROP[0].start : BM_CROP[0].start + h,
+                BM_CROP[1].start : BM_CROP[1].start + w].contiguous()
+        E = ms_filter.window(R, None)
+        need = ms_query_iterations(x, iters, R)
+        wide = {"R": R, "E": E, "form": ms_filter.form_for(E),
+                "launches_per_call": launched(
+                    "mean_shift_filter", lambda x=x, R=R, iters=iters:
+                    ms_filter.mean_shift_filter(x, R, MS_KI, iters), 1, E=E)}
+        if wide["form"] != "wide":
+            raise AssertionError(f"mean_shift_filter E={E}: {wide['form']}")
+        if usage:
+            wide.update(tile_rows=ms_filter.tile_rows(E), **kernel_usage(
+                "ms_filter_wide_kernel",
+                ms_filter.blocks_per_sm(E, ms_filter.tile_rows(E))))
+        one = {}
+        kernel_row(one, "mean_shift_filter", (h, w),
+                   lambda x=x, R=R, iters=iters: ms_filter.mean_shift_filter(
+                       x, R, MS_KI, iters),
+                   lambda x=x, R=R, iters=iters:
+                   ms_filter.mean_shift_filter_plain(x, R, MS_KI, iters),
+                   ms_bound((h, w), R, need), plain_reps=1, iters=iters,
+                   query_iterations=need, **wide)
+        rows.append({"shape": [h, w], "iters": iters,
+                     "query_iterations": need, **wide,
                      **one["mean_shift_filter"]})
     need = ms_query_iterations(lab, MS_ITERS)
     row = {"iters": MS_ITERS, "query_iterations": need, **what,
@@ -1017,6 +1120,20 @@ def phase_kernels_flagship(dev, out) -> None:
                     shape=shape, batch=batch, fuse=deep)
 
     ms_rows(dev, out)
+
+
+def launched(kernel: str, fn, expected: int, **what) -> int:
+    """fn() launches ``kernel`` exactly ``expected`` times (read_counts)."""
+    import torch
+
+    before = read_counts()[kernel]
+    fn()
+    torch.cuda.synchronize()
+    n = read_counts()[kernel] - before
+    if n != expected:
+        raise AssertionError(f"{kernel} {what}: {n} launches, expected "
+                             f"{expected}")
+    return n
 
 
 def exact(name: str, got, want) -> float:
@@ -2099,8 +2216,8 @@ def main() -> None:
         if launches.get(kname, 0) < 1:
             raise AssertionError(f"{kname} was not launched on the main path")
         kernels.append({"name": kname, "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "launches": launches[kname], **numbers[kname]})
+                        "replaces": replaces, **numbers[kname],
+                        "launches": launches[kname]})
     log("total", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ device, and where it has them an ``out`` dict and ``usage`` (the kernel
 rows: ``sepconv_rows``, ``resident_rows``, ``irls_levels``,
 ``resident_checks``, ``phase_kernels_wide``, ...), or ``fb_profiled``:
 Farneback's FB_PROFILED config at 1080x1920, ms per frame and one
-profiler frame (the card's busy time and idle share).
+profiler frame (the card's busy time and idle share), or ``blur_ab``:
+blur-solve against its plain version at the winsizes a parent's kernel
+also takes (chip_smoke.BLUR_AB), through the wrapper alone.
 
 Without ``--repo`` it first runs chip_smoke.py's build phase, so the rows
 log blocks per SM and ptxas's registers and spills. With ``--repo`` the
@@ -40,6 +42,24 @@ def fb_profiled(cs, dev) -> None:
                      config=cs.FB_PROFILED)
 
 
+def blur_ab(cs, dev) -> None:
+    """blur-solve at BLUR_AB through the checkout's wrapper and plain
+    version alone (a parent's module has no form functions)."""
+    from tpuflow_torch.core import borders as bd
+    from tpuflow_torch.kernels import fb_kernels
+
+    for shape, winsize in cs.BLUR_AB:
+        M, = cs.f32(dev, cs.well_conditioned_m(shape, winsize))
+        Mp = bd.pad2d(M, winsize // 2, bd.CLAMP)
+        cs.kernel_row({}, "fb_blur_solve", shape,
+                      lambda: fb_kernels.fb_blur_solve(Mp, winsize),
+                      lambda: fb_kernels.fb_blur_solve_plain(Mp, winsize),
+                      cs.blur_bound(*Mp.shape[1:], winsize), winsize=winsize)
+
+
+SPECIAL = {"fb_profiled": fb_profiled, "blur_ab": blur_ab}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", type=Path)
@@ -58,8 +78,8 @@ def main() -> None:
     if not args.repo:
         cs.phase_build()
     for name in args.rows.split(","):
-        if name == "fb_profiled":
-            fb_profiled(cs, dev)
+        if name in SPECIAL:
+            SPECIAL[name](cs, dev)
             continue
         fn = getattr(cs, name)
         params = inspect.signature(fn).parameters

@@ -1,25 +1,29 @@
 #!/usr/bin/env python3
 """Design variants of tpuflow_torch/csrc/ms_filter.cu and the poly
-expansion of tpuflow_torch/csrc/fb_kernels.cu on one card.
+expansion and blur-solve of tpuflow_torch/csrc/fb_kernels.cu on one card.
 
-    python3 scripts/ms_poly_variants.py [--only ms|poly] [--sass PATH]
+    python3 scripts/ms_poly_variants.py [--only ms|poly|blur] [--sass PATH]
 
 Builds each source as committed and with one change substituted (VARIANTS
 below: for the mean-shift filter the planar and the float2 + float
 layouts of the staged tile, no fixed-point exit, one point staged per
 round trip, the run loop unrolled by 2 or 8; for the poly expansion two
-blocks per SM instead of four), one nvcc each, all started together, into
+blocks per SM instead of four; for the blur-solve one channel's row sums
+staged at a time, two barriers a channel, instead of all five, and two
+blocks per SM at the compiled winsizes instead of three), one nvcc
+each, all started together, into
 build/ms_poly_variants/; binds each library in turn into the wrapper
 module (``tpuflow_torch.kernels.ms_filter`` or ``fb_kernels``) and runs
 the rows through the wrappers, the committed build first and last, the
 variants between. Mean-shift: R = 20, 8 iterations on the flagship
 scene's 376x1240 Lab frame, bitwise against the plain version computed
 once, at the query rows the launcher picks and at FORCED_ROWS; the
-committed build also at ITERS iterations (the fixed cost of a launch and
-each iteration's), and the share of queries settled after each
-iteration. Poly expansion: chip_smoke.py's ``poly_rows`` (each row within
-KERNEL_TOL, max|d| logged). One JSON line per run: the variant, device ms
-per row, ptxas's registers and spills, blocks per SM. The SASS of the
+committed build also in the wide form (forced: nothing staged), at ITERS
+iterations (the fixed cost of a launch and each iteration's), and the
+share of queries settled after each iteration. Poly expansion: chip_smoke.py's ``poly_rows`` (each row within
+KERNEL_TOL, max|d| logged). Blur-solve: chip_smoke.py's ``blur_rows`` at
+BLUR_AB. One JSON line per run: the variant, device ms per row, ptxas's
+registers and spills, blocks per SM. The SASS of the
 committed mean-shift kernel (``cuobjdump -sass``) goes to ``--sass``
 (build/ms_poly_variants/ms_filter.sass by default). The first lines are
 chip_smoke.py's device phase (the card's name and power limit). Exits 1
@@ -74,6 +78,7 @@ MS_EXIT = "    if (fixed) break;\n"
 MS_LOOP = ("#pragma unroll 4\n"
            "      for (int tag = key + lo; tag < end; ++tag) {")
 POLY_BOUNDS = "__launch_bounds__(P_THREADS, N > 0 ? 4 : 2)"
+BLUR_BOUNDS = "__launch_bounds__(B_THREADS, W > 0 ? 3 : 2)"
 # (kernel, name, [(committed text, substitute), ...]); [] is as committed.
 VARIANTS = (
     ("ms", "committed", []),
@@ -86,8 +91,12 @@ VARIANTS = (
     ("ms", "unroll8", [(MS_LOOP, MS_LOOP.replace("unroll 4", "unroll 8"))]),
     ("poly", "committed", []),
     ("poly", "bounds2", [(POLY_BOUNDS, "__launch_bounds__(P_THREADS, 2)")]),
+    ("blur", "committed", []),
+    ("blur", "one_channel", [("constexpr int B_GROUP = 5;",
+                              "constexpr int B_GROUP = 1;")]),
+    ("blur", "bounds2", [(BLUR_BOUNDS, "__launch_bounds__(B_THREADS, 2)")]),
 )
-SOURCE = {"ms": "ms_filter", "poly": "fb_kernels"}
+SOURCE = {"ms": "ms_filter", "poly": "fb_kernels", "blur": "fb_kernels"}
 FORCED_ROWS = (16, 19)
 ITERS = (0, 1, 2)
 
@@ -134,6 +143,22 @@ def ms_run(cs, dev, name, lab, want, report) -> dict:
     finally:
         ms_filter.tile_rows = tile_rows
     if name == "committed":
+        # The wide form (nothing staged) at the same window, bitwise too:
+        # what staging saves, and so the most a banded staging of a wide
+        # window could.
+        form_for = ms_filter.form_for
+        try:
+            ms_filter.form_for = lambda E: "wide"
+
+            def wide():
+                return ms_filter.mean_shift_filter(lab, cs.MS_R, cs.MS_KI,
+                                                   cs.MS_ITERS)
+
+            cs.exact(f"ms {name} wide form", wide(), want)
+            rows[f"wide_iters{cs.MS_ITERS}_ms"] = cs.cuda_ms(
+                wide, reps=5, device_only=True)
+        finally:
+            ms_filter.form_for = form_for
         for iters in ITERS:
             rows[f"th{picked}_iters{iters}_ms"] = cs.cuda_ms(
                 lambda iters=iters: ms_filter.mean_shift_filter(
@@ -169,9 +194,26 @@ def poly_run(cs, dev, name, report) -> dict:
                   if "poly" in k}}
 
 
+def blur_run(cs, dev, name, report) -> dict:
+    out = {}
+    cs.blur_rows(dev, out, usage=False, cases=cs.BLUR_AB)
+    from tpuflow_torch.kernels import fb_kernels
+
+    return {"kernel": "fb_blur_solve", "variant": name, "rows": [
+        {"shape": r["shape"], "winsize": r["winsize"], "ms": r["ms"],
+         "max_abs_err": r["max_abs_err"],
+         "blocks_per_sm": fb_kernels.blur_blocks_per_sm(r["winsize"])}
+        for r in out["fb_blur_solve"]["rows"]],
+        "ptxas": {k: v for k, v in cs.read_ptxas(report).items()
+                  if "blur" in k}}
+
+
+RUN = {"poly": poly_run, "blur": blur_run}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("ms", "poly"))
+    ap.add_argument("--only", choices=("ms", "poly", "blur"))
     ap.add_argument("--sass", type=Path, default=OUT / "ms_filter.sass")
     args = ap.parse_args()
     sys.path.insert(0, str(REPO))
@@ -210,7 +252,7 @@ def main() -> None:
                 fb_kernels._bind(lib)
             module._lib = lambda lib=lib: lib
             row = (ms_run(cs, dev, name, lab, want, report) if kernel == "ms"
-                   else poly_run(cs, dev, name, report))
+                   else RUN[kernel](cs, dev, name, report))
             print(json.dumps(row), flush=True)
 
 

@@ -8,8 +8,10 @@ uses a log2-doubling sum for uniform taps, its blur-solve 8-tap block
 sums), so the tolerances are tests/test_kernels.py's: 2e-5 for sepconv,
 1e-4 for poly on 0-255 images, 1e-5 for blur-solve on a well-conditioned
 M. The CUDA kernels themselves are held to these plain versions on the
-card by chip_smoke.py. The refusal tests use a stand-in for a CUDA
-tensor: the wrappers must refuse it before any build or launch.
+card by chip_smoke.py. The refusal and dispatch tests use a stand-in for
+a CUDA tensor: the wrappers must refuse it before any build or launch, or
+hand it to the launch function of the form its shape picks (replaced here
+by a recorder).
 """
 
 import jax.numpy as jnp
@@ -68,6 +70,24 @@ def test_sepconv_plain_matches_pallas_uniform_taps(n):
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("taps", [(129, 129), (161, 5), (3, 170)])
+def test_sepconv_plain_matches_pallas_wide_taps(taps):
+    """Tap counts past the kernel's parameter struct (128 a axis), which the
+    card takes from device memory."""
+    nky, nkx = taps
+    rng = np.random.default_rng(nky * 1000 + nkx)
+    padded = rng.normal(size=(9 + nky - 1, 21 + nkx - 1)).astype(np.float32)
+    ky = rng.normal(size=nky) / np.sqrt(nky)
+    kx = rng.normal(size=nkx) / np.sqrt(nkx)
+    out = sepconv.sep_conv2d_valid(torch.from_numpy(padded), ky, kx)
+    ref = sep_conv2d_valid_pallas(
+        jnp.asarray(padded), tuple(map(float, ky)), tuple(map(float, kx)),
+        interpret=True)
+    assert out.shape == (9, 21)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=2e-5)
+
+
 def test_sepconv_taps_rounded_once_to_the_image_dtype():
     """float32 images see float32 taps, float64 images the float64 taps."""
     k = np.array([0.1, 0.7, 0.2])
@@ -107,6 +127,24 @@ def test_poly_plain_matches_pallas(n, sigma, hw):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
                                    atol=1e-4)
     assert _counts() == before
+
+
+def test_poly_plain_matches_pallas_wide_taps():
+    """poly_n 33 (67 taps), past the kernel's parameter struct (64)."""
+    n, hw = 33, (11, 19)
+    img = np.random.default_rng(n).uniform(0, 255, hw).astype(np.float32)
+    g, gx, gxx, rows = _poly_args(n, 0.15 * n + 0.4)
+    padded_t = tbd.pad2d(torch.from_numpy(img), n, tbd.CLAMP)
+    out = fb_kernels.fb_poly_expansion(padded_t, g, gx, gxx, rows)
+    padded_j = jbd.pad2d(jnp.asarray(img), (n, n, n, n), jbd.CLAMP)
+    ref = fb_poly_expansion_pallas(
+        padded_j, tuple(map(float, g)), tuple(map(float, gx)),
+        tuple(map(float, gxx)), tuple(tuple(map(float, r)) for r in rows),
+        interpret=True)
+    for a, b in zip(out, ref):
+        assert a.shape == hw
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-4)
 
 
 def test_poly_plain_skips_zero_coefficients():
@@ -154,6 +192,24 @@ def test_blur_solve_plain_matches_pallas(winsize, hw):
     assert _counts() == before
 
 
+@pytest.mark.parametrize("winsize,atol", [(200, 1e-5), (640, 1e-4)])
+def test_blur_solve_plain_matches_pallas_wide_window(winsize, atol):
+    """Windows past the parent kernel's shared-memory ceiling (~155): the
+    card runs 200 staged and 640 in the wide form. tpuflow sums in 8-tap
+    blocks, the port tap by tap; the two orders' float32 rounding grows
+    with the 2 x 640 terms of a sum, so 640 is held at 1e-4 (2.4e-5
+    measured on this input), the others at 1e-5."""
+    h, w = 13, 22
+    M = _well_conditioned_m(h, w, winsize)
+    m = winsize // 2
+    Mp = np.pad(M, ((0, 0), (m, m), (m, m)), mode="edge")
+    u, v = fb_kernels.fb_blur_solve(torch.from_numpy(Mp), winsize)
+    uj, vj = fb_blur_solve_pallas(jnp.asarray(Mp), winsize, interpret=True)
+    assert u.shape == (h + 1, w + 1) == uj.shape
+    np.testing.assert_allclose(u.numpy(), np.asarray(uj), rtol=0, atol=atol)
+    np.testing.assert_allclose(v.numpy(), np.asarray(vj), rtol=0, atol=atol)
+
+
 def test_blur_solve_clamps_singular_det():
     """A singular system (m11 = m12 = 0) solves against det = 1e-9:
     u = m22 * h1 / 1e-9, v = 0."""
@@ -188,19 +244,38 @@ class CudaStandIn:
                 for _ in range(self.shape[0])]
 
 
-def test_sepconv_refuses_what_the_kernel_cannot_run():
+LAUNCH_FNS = {sepconv: ("_launch", "_wide_launch"),
+              fb_kernels: ("_poly_launch", "_poly_wide_launch",
+                           "_blur_launch", "_blur_wide_launch")}
+
+
+def _launched(monkeypatch, module, fn, *args):
+    """The launch functions of ``module`` that fn(*args) calls, each
+    replaced by a recorder (no build, no launch)."""
+    calls = []
+    for name in LAUNCH_FNS[module]:
+        monkeypatch.setattr(module, name,
+                            lambda *a, name=name: calls.append(name))
+    fn(*args)
+    return calls
+
+
+def test_sepconv_refuses_what_the_kernel_cannot_run(monkeypatch):
     k5 = np.ones(5)
     with pytest.raises(TypeError, match="float32"):
         sepconv.sep_conv2d_valid(CudaStandIn((40, 40), torch.float64), k5, k5)
     with pytest.raises(ValueError, match="do not fit"):
         sepconv.sep_conv2d_valid(CudaStandIn((4, 40)), k5, k5)
-    with pytest.raises(ValueError, match="at most"):
-        sepconv.sep_conv2d_valid(CudaStandIn((400, 400)), np.ones(129), k5)
+    # 129 taps, past the parameter struct: the staged kernel, its taps from
+    # device memory.
+    assert _launched(monkeypatch, sepconv, sepconv.sep_conv2d_valid,
+                     CudaStandIn((400, 400)), np.ones(129), k5) == ["_launch"]
+    assert sepconv.instantiation(129, 5) == (sepconv.DEVICE_TAPS,) * 2
     with pytest.raises(ValueError):
         sepconv.sep_conv2d_valid(torch.zeros((2, 8, 8)), k5, k5)
 
 
-def test_poly_refuses_what_the_kernel_cannot_run():
+def test_poly_refuses_what_the_kernel_cannot_run(monkeypatch):
     g, gx, gxx, rows = _poly_args(5, 1.1)
     with pytest.raises(TypeError, match="float32"):
         fb_kernels.fb_poly_expansion(CudaStandIn((50, 50), torch.float64),
@@ -208,21 +283,63 @@ def test_poly_refuses_what_the_kernel_cannot_run():
     with pytest.raises(ValueError, match="do not fit"):
         fb_kernels.fb_poly_expansion(CudaStandIn((50, 50)), g, gx[:-1], gxx,
                                      rows)
+    # 65 taps, past the parameter struct: the staged kernel, its taps from
+    # device memory.
     g65, gx65, gxx65, rows65 = _poly_args(32, 8.0)
-    with pytest.raises(ValueError, match="at most"):
-        fb_kernels.fb_poly_expansion(CudaStandIn((200, 200)), g65, gx65,
-                                     gxx65, rows65)
+    assert _launched(monkeypatch, fb_kernels, fb_kernels.fb_poly_expansion,
+                     CudaStandIn((200, 200)), g65, gx65, gxx65,
+                     rows65) == ["_poly_launch"]
+    assert fb_kernels.poly_instantiation(65) == fb_kernels.DEVICE_TAPS
 
 
-def test_blur_solve_refuses_what_the_kernel_cannot_run():
+def test_blur_solve_refuses_what_the_kernel_cannot_run(monkeypatch):
     with pytest.raises(TypeError, match="float32"):
         fb_kernels.fb_blur_solve(CudaStandIn((5, 80, 80), torch.float64), 15)
     with pytest.raises(ValueError, match=r"\(5, Hp, Wp\)"):
         fb_kernels.fb_blur_solve(CudaStandIn((4, 80, 80)), 15)
     with pytest.raises(ValueError, match="does not fit"):
         fb_kernels.fb_blur_solve(CudaStandIn((5, 10, 80)), 15)
-    with pytest.raises(ValueError, match="shared memory"):
-        fb_kernels.fb_blur_solve(CudaStandIn((5, 400, 400)), 200)
+    # Winsize 200, past the parent kernel's shared memory: staged.
+    assert _launched(monkeypatch, fb_kernels, fb_kernels.fb_blur_solve,
+                     CudaStandIn((5, 400, 400)), 200) == ["_blur_launch"]
+
+
+@pytest.mark.parametrize("case", [
+    # (module, wrapper, shape, taps or winsize, launch function)
+    ("sep", (1128, 1967), (48, 48), "_launch"),
+    ("sep", (1082, 1922), (3, 3), "_launch"),
+    ("sep", (900, 900), (652, 652), "_launch"),
+    ("sep", (900, 900), (5, 653), "_wide_launch"),
+    ("sep", (900, 900), (653, 5), "_launch"),
+    ("poly", (1096, 1936), 17, "_poly_launch"),
+    ("poly", (1200, 1200), 995, "_poly_launch"),
+    ("poly", (1200, 1200), 997, "_poly_wide_launch"),
+    ("blur", (5, 1128, 1968), 48, "_blur_launch"),
+    ("blur", (5, 700, 700), 598, "_blur_launch"),
+    ("blur", (5, 700, 700), 599, "_blur_wide_launch"),
+])
+def test_wrappers_dispatch_by_shape(monkeypatch, case):
+    """A CUDA tensor goes to the staged kernel at the main paths' shapes
+    and past them while its tile fits, and to the wide form beyond."""
+    kind, shape, arg, want = case
+    x = CudaStandIn(shape)
+    if kind == "sep":
+        got = _launched(monkeypatch, sepconv, sepconv.sep_conv2d_valid, x,
+                        np.ones(arg[0]), np.ones(arg[1]))
+        assert sepconv.form_for(*arg) == ("wide" if "wide" in want
+                                          else "staged")
+    elif kind == "poly":
+        taps = np.ones(arg)
+        got = _launched(monkeypatch, fb_kernels, fb_kernels.fb_poly_expansion,
+                        x, taps, taps, taps, np.ones((5, 6)))
+        assert fb_kernels.poly_form(arg) == ("wide" if "wide" in want
+                                             else "staged")
+    else:
+        got = _launched(monkeypatch, fb_kernels, fb_kernels.fb_blur_solve, x,
+                        arg)
+        assert fb_kernels.blur_form(arg) == ("wide" if "wide" in want
+                                             else "staged")
+    assert got == [want]
 
 
 def test_main_path_geometries_fit_shared_memory():

@@ -64,6 +64,22 @@ def test_filter_matches_pallas_interpret(R, ki, iters, margin):
                                atol=1e-12)
 
 
+def test_filter_matches_pallas_interpret_wide_window():
+    """A window past the card's staged form (E = R + margin = 53, which the
+    card runs in its wide form), on a 12x20 frame: the square reaches far
+    past the frame on every side."""
+    lab = np.random.default_rng(53).uniform(0, 1, (12, 20, 3))
+    pos_t, col_t = tms.mean_shift_filter(torch.from_numpy(lab), 4, 0.25, 2,
+                                         49)
+    pos_j, col_j = mean_shift_filter_pallas(
+        jnp.asarray(lab), 4, 0.25, 2, 49, tile_h=16, tile_w=128,
+        interpret=True)
+    np.testing.assert_allclose(pos_t.numpy(), np.asarray(pos_j), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(col_t.numpy(), np.asarray(col_j), rtol=0,
+                               atol=1e-12)
+
+
 @pytest.mark.parametrize("R,ki,iters,seed", [(6, 0.1, 4, 12), (4, 0.12, 3, 1),
                                              (3, 0.15, 5, 5)])
 def test_filter_matches_jnp_in_contract(R, ki, iters, seed):

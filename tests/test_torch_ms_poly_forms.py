@@ -23,7 +23,20 @@ are the plain versions' arithmetic:
   ``fb_poly_expansion_plain`` at the compiled tap counts and a run-time one;
 - (d) the Python-side geometry matches the CUDA sources: tiles, threads,
   compiled tap counts, shared memory, and the tile rows the mean-shift
-  launcher picks.
+  launcher picks;
+- (e) past the old ceilings: the mean-shift filter's wide form (nothing
+  staged; dx, dy and the count summed in float in offset order) equals
+  the plain version past the staged form's window; sepconv's and the poly
+  expansion's register-blocked orders equal theirs at tap counts past the
+  parameter structs (the taps from device memory); the wrappers pick
+  each form by shape. The two-launch wide forms of sepconv, poly and
+  blur-solve compute each output with the plain version's loops, one
+  thread an output, so the plain version is their model;
+- (f) a test-local emulation of the redesigned blur-solve (blocks of
+  TILE_H x TILE_W outputs; each channel's columns streamed past
+  BLUR_ROWS_ACC accumulators, then its rows past BLUR_ACC, adds only, from
+  the first term on; the five scaled sums solved per pixel) equals
+  ``fb_blur_solve_plain``.
 """
 
 import math
@@ -41,7 +54,7 @@ from tpuflow_torch.solvers.farneback import _poly_exp_matrices
 
 from test_torch_sweep_forms import (CSRC, SMEM_PER_SM,
                                     SMEM_RESERVED_PER_BLOCK, _cu_constants,
-                                    _sliding_taps)
+                                    _sepconv_blocked, _sliding_taps)
 
 F32 = torch.float32
 
@@ -131,13 +144,15 @@ def test_row_runs_equal_brute_force(R, margin):
         assert torch.equal(run, brute[live])
 
 
-def _ms_emulated(lab, R, ki, iters, margin):
+def _ms_emulated(lab, R, ki, iters, margin, wide=False):
     """csrc/ms_filter.cu on every query at once: rows of the kernel's row
     range, the run of each row, the colour test alone inside it, the
     colour sums in offset order (a failed test adds nothing), the count
-    and sum of dx + E of a row packed into one int, dy summed in int; a
-    query whose iteration gives its state (drift, colour) back bit for bit
-    stops. Returns (pos, col) and the iterations each query ran."""
+    and sum of dx + E of a row packed into one int, dy summed in int (the
+    wide form: dx, dy and 1 added in float, point by point in offset
+    order); a query whose iteration gives its state (drift, colour) back
+    bit for bit stops. Returns (pos, col) and the iterations each query
+    ran."""
     h, w = lab.shape[:2]
     E = ms_filter.window(R, margin)
     hs2 = float(R) ** 2
@@ -158,7 +173,7 @@ def _ms_emulated(lab, R, ki, iters, margin):
     live_q = torch.ones(h * w, dtype=torch.bool)
     for _ in range(iters):
         s = [torch.zeros_like(ex) for _ in range(3)]
-        s_n = torch.zeros(h * w, dtype=torch.long)
+        s_n = torch.zeros(h * w, dtype=F32 if wide else torch.long)
         s_dx, s_dy = s_n.clone(), s_n.clone()
         y_lo, y_hi = _row_range(ey, reach, E)
         for j in range(2 * reach + 2):
@@ -177,10 +192,15 @@ def _ms_emulated(lab, R, ki, iters, margin):
                 ok &= a * a + b * b + cc * cc <= hr2
                 s = [torch.where(ok, s[i] + q[:, i], s[i]) for i in range(3)]
                 packed += torch.where(ok, key + lo + k, 0)
-            count = packed >> shift
-            s_n += count
-            s_dx += (packed & ((1 << shift) - 1)) - E * count
-            s_dy += dy * count
+                if wide:
+                    s_dx = torch.where(ok, s_dx + (lo + k).to(F32), s_dx)
+                    s_dy = torch.where(ok, s_dy + dy.to(F32), s_dy)
+                    s_n = torch.where(ok, s_n + 1.0, s_n)
+            if not wide:
+                count = packed >> shift
+                s_n += count
+                s_dx += (packed & ((1 << shift) - 1)) - E * count
+                s_dy += dy * count
         nn = torch.clamp_min(s_n.to(F32), 1.0)
         got = s_n > 0
         new = [torch.where(got, s_dx.to(F32) / nn, -xs.to(F32)),
@@ -345,7 +365,8 @@ def test_ms_tile_rows():
     """(d) Up to the flagship's E = 40 and beyond (E <= 46), a block takes
     the full 24 query rows, one block per SM at E = 40; wider windows take
     fewer rows, down to one at E = 52 (R = 26 with the default margin); a
-    window whose one row does not fit raises."""
+    window whose one row does not fit runs the wide form, 24 rows a
+    block."""
     for E in range(0, 47):
         assert ms_filter.tile_rows(E) == ms_filter.TILE_H
     assert _blocks_by_smem(ms_filter.smem_bytes(40, ms_filter.TILE_H)) == 1
@@ -356,8 +377,8 @@ def test_ms_tile_rows():
         assert ms_filter.smem_bytes(E, th) <= MAX_SMEM_BYTES
         assert th == ms_filter.TILE_H or \
             ms_filter.smem_bytes(E, th + 1) > MAX_SMEM_BYTES
-    with pytest.raises(ValueError, match="shared memory"):
-        ms_filter.tile_rows(53)
+    assert ms_filter.form_for(53) == "wide"
+    assert ms_filter.tile_rows(53) == ms_filter.TILE_H
 
 
 def test_poly_geometry_matches_cuda_source():
@@ -390,3 +411,171 @@ def test_poly_compiled_counts_match_cuda_source():
         assert fb_kernels.poly_instantiation(n) == n
     for n in (1, 7, 9, 13, 15, 33, 64):
         assert fb_kernels.poly_instantiation(n) == 0
+
+
+# -- (e) the wide forms -------------------------------------------------------
+
+
+@pytest.mark.parametrize("R,ki,iters,margin", [(4, 0.08, 2, 49),
+                                               (3, 0.1, 2, 125)])
+def test_ms_wide_emulation_equals_plain(R, ki, iters, margin):
+    """(e) The wide form's traversal and float sums equal
+    mean_shift_filter_plain bitwise past the staged form's window: E = 53
+    (the first the staged tile cannot hold) and E = 128 (past the packed
+    row sums' 127), on a 12x20 frame whose window reaches far past it."""
+    E = ms_filter.window(R, margin)
+    assert ms_filter.form_for(E) == "wide"
+    lab = _banded_lab(12, 20, E)
+    want = ms_filter.mean_shift_filter_plain(lab, R, ki, iters, margin)
+    got, _ = _ms_emulated(lab, R, ki, iters, margin, wide=True)
+    _assert_bitwise(got, want)
+    assert (want[0] != torch.round(want[0])).any()
+
+
+def test_ms_forms_by_window():
+    """(e) The staged form up to E = 52 (the flagship's E = 40 among them,
+    24 query rows), the wide form from 53 on, past MAX_E too."""
+    assert ms_filter.form_for(ms_filter.window(20, None)) == "staged"
+    assert ms_filter.tile_rows(40) == ms_filter.TILE_H
+    for E in range(0, 53):
+        assert ms_filter.form_for(E) == "staged"
+    for E in (53, 60, ms_filter.MAX_E, ms_filter.MAX_E + 1, 300):
+        assert ms_filter.form_for(E) == "wide"
+        assert ms_filter.tile_rows(E) == ms_filter.TILE_H
+
+
+@pytest.mark.parametrize("taps", [(161, 3), (40, 170), (129, 129)])
+def test_sepconv_blocked_past_parameter_struct_equals_plain(taps):
+    """(e) sepconv's register-blocked order with more taps than the
+    parameter struct holds (the DEVICE_TAPS instantiation) equals
+    sep_conv2d_valid_plain bitwise."""
+    nky, nkx = taps
+    assert sepconv.instantiation(nky, nkx) == (sepconv.DEVICE_TAPS,) * 2
+    rng = np.random.default_rng(nky + 7 * nkx)
+    padded = torch.tensor(rng.uniform(-255, 255, (69 + nky, 140 + nkx)),
+                          dtype=F32)
+    ky = sepconv.host_taps(rng.normal(size=nky), F32)
+    kx = sepconv.host_taps(rng.uniform(0.1, 1.0, nkx), F32)
+    assert torch.equal(_sepconv_blocked(padded, ky, kx),
+                       sepconv.sep_conv2d_valid_plain(padded, ky, kx))
+
+
+def test_poly_blocked_past_parameter_struct_equals_plain():
+    """(e) The poly expansion's register-blocked order at 67 taps (n = 33,
+    the DEVICE_TAPS instantiation) equals fb_poly_expansion_plain
+    bitwise."""
+    n = 33
+    assert fb_kernels.poly_instantiation(2 * n + 1) == fb_kernels.DEVICE_TAPS
+    img, taps, rows = _poly_inputs(n, (18, 140), n)
+    ginv = rows.reshape(5, 6)
+    _assert_bitwise(_poly_blocked(img, *taps, ginv),
+                    fb_kernels.fb_poly_expansion_plain(img, *taps, ginv))
+
+
+def test_forms_by_tap_count_and_winsize():
+    """(e) The main paths' tap counts and winsizes take the staged kernels;
+    each wide form starts where a block's tile no longer fits: sepconv at
+    653 kx taps (any ky count), poly at 997 taps, blur-solve at winsize
+    599."""
+    for n in (3, 9, 15, 17, 48, 64, 128, 129, 652):
+        assert sepconv.form_for(n, n) == "staged"
+    assert sepconv.form_for(5000, 5) == "staged"
+    assert sepconv.form_for(5, 653) == sepconv.form_for(653, 653) == "wide"
+    for n in (11, 17, 7, 65, 995):
+        assert fb_kernels.poly_form(n) == "staged"
+    assert fb_kernels.poly_form(997) == "wide"
+    for w in (15, 48, 64, 200, 598):
+        assert fb_kernels.blur_form(w) == "staged"
+    assert fb_kernels.blur_form(599) == "wide"
+    for w, f in ((598, "staged"), (599, "wide")):
+        assert (fb_kernels.blur_smem_bytes(w) <= MAX_SMEM_BYTES) == \
+            (f == "staged")
+
+
+# -- (f) the blur-solve's order -----------------------------------------------
+
+
+def _box_stream(n, load, acc_n):
+    """csrc/fb_kernels.cu's box_stream: sepconv's streamed order with unit
+    taps (x * 1 is x, exactly), so adds only."""
+    return _sliding_taps(np.ones(n, np.float32), n, load, acc_n)
+
+
+def _blur_inv_area(winsize):
+    return float(sepconv.host_taps([1.0 / (winsize * winsize)], F32)[0])
+
+
+def _blur_blocked(mp, winsize):
+    """csrc/fb_kernels.cu's blur-solve on every block of the grid at once:
+    blocks of TILE_H x TILE_W outputs; each channel's vertical sums on the
+    block's TILE_W + winsize - 1 columns, BLUR_ROWS_ACC rows a stream
+    (inputs past the padded field read as 0); then each row's horizontal
+    sums in groups of BLUR_ACC; the five sums scaled and solved."""
+    th, tw = fb_kernels.TILE_H, fb_kernels.TILE_W
+    rv, rh = fb_kernels.BLUR_ROWS_ACC, fb_kernels.BLUR_ACC
+    _, hp, wp = mp.shape
+    ho, wo = hp - winsize + 1, wp - winsize + 1
+    nby, nbx = -(-ho // th), -(-wo // tw)
+    ncols = tw + winsize - 1
+    p = torch.zeros((5, nby * th + winsize - 1, nbx * tw + winsize - 1),
+                    dtype=F32)
+    p[:, :hp, :wp] = mp
+    # (channel, row group, block column, input q, column c).
+    cols = p.unfold(1, rv + winsize - 1, rv).unfold(2, ncols, tw)
+    acc = _box_stream(winsize, lambda q: cols[..., q, :], rv)
+    rows = torch.stack(acc, 2).reshape(5, nby * rv, nbx, ncols)
+    # (channel, row, block column, column group, input q).
+    segs = rows.unfold(3, rh + winsize - 1, rh)
+    assert segs.shape[3] == tw // rh
+    acc = _box_stream(winsize, lambda q: segs[..., q], rh)
+    box = torch.stack(acc, -1).reshape(5, nby * rv, nbx * tw)
+    blurred = box[:, :ho, :wo] * _blur_inv_area(winsize)
+    return fb_kernels.solve_2x2(*blurred)
+
+
+@pytest.mark.parametrize("winsize", [1, 2, 3, 15, 48, 64, 200])
+@pytest.mark.parametrize("out_hw", [(17, 131), (34, 260)])
+def test_blur_register_blocked_equals_plain(winsize, out_hw):
+    """(f) The redesigned blur-solve's order equals fb_blur_solve_plain
+    bitwise: odd and even winsizes (the main paths' 48 and 64, the
+    run-time 15, one past the parent kernel's ceiling), on ragged sizes of
+    one and several blocks."""
+    rng = np.random.default_rng(winsize + out_hw[0])
+    mp = torch.tensor(rng.normal(size=(5, out_hw[0] + winsize - 1,
+                                       out_hw[1] + winsize - 1)), dtype=F32)
+    mp[1] *= 0.2  # m12 small against m11, m22: a well-conditioned field
+    mp[0].abs_().add_(0.5)
+    mp[2].abs_().add_(0.5)
+    want = fb_kernels.fb_blur_solve_plain(mp, winsize)
+    _assert_bitwise(_blur_blocked(mp, winsize), want)
+
+
+def test_blur_geometry_matches_cuda_source():
+    """(f) The wrapper's blur tile, threads, accumulators and channel group
+    are the source's; one horizontal item a thread; the compiled winsizes
+    are blur_kernel_for's cases."""
+    c = _cu_constants("fb_kernels")
+    assert (c["BH"], c["BW"], c["BR"], c["B_THREADS"], c["B_GROUP"]) == (
+        fb_kernels.TILE_H, fb_kernels.TILE_W, fb_kernels.BLUR_ACC,
+        fb_kernels.THREADS, fb_kernels.BLUR_GROUP)
+    assert "constexpr int BV = BH;" in (CSRC / "fb_kernels.cu").read_text()
+    assert fb_kernels.BLUR_ROWS_ACC == fb_kernels.TILE_H
+    assert (fb_kernels.TILE_H * fb_kernels.TILE_W // fb_kernels.BLUR_ACC
+            == fb_kernels.THREADS)
+    src = (CSRC / "fb_kernels.cu").read_text()
+    body = src[src.index("BlurFn blur_kernel_for("):]
+    body = body[:body.index("\n}\n")]
+    cases = re.findall(r"case (\d+): return fb_blur_solve_kernel<(\d+)>;",
+                       body)
+    assert all(a == b for a, b in cases)
+    assert tuple(int(a) for a, _ in cases) == \
+        fb_kernels.BLUR_COMPILED_WINSIZES
+    assert "return fb_blur_solve_kernel<0>;" in body
+    for w in (1, 15, 47, 200):
+        assert fb_kernels.blur_instantiation(w) == 0
+    for w in fb_kernels.BLUR_COMPILED_WINSIZES:
+        assert fb_kernels.blur_instantiation(w) == w
+    for w in (15, 48, 64):
+        smem = fb_kernels.blur_smem_bytes(w)
+        assert smem == 4 * 5 * 16 * ((128 + w - 1) | 1)
+        assert _blocks_by_smem(smem) >= 3

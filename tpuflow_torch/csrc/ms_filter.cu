@@ -46,6 +46,14 @@
 // disables FMA contraction and the colour sums follow the plain version's
 // order (a failed test adds +-0 there, which leaves a sum unchanged), so
 // the result is bitwise its plain version.
+//
+// The wide form (ms_filter_wide_kernel): where one query row's tile does
+// not fit a block's shared memory (E >= 53) or the packed row sum cannot
+// hold E (E > 127), nothing is staged. Each point's (L, a, b) is read from
+// device memory through the read-only cache, the sentinel in place of a
+// point outside the frame, on the same row runs in the same order; dx,
+// dy and the count are summed in float, term by term in offset order, as
+// the plain version sums them, so no bound on E keeps them exact.
 
 #include <cuda_runtime.h>
 
@@ -79,6 +87,61 @@ __device__ __forceinline__ bool in_disc(int dx, float ex, float ty2,
                                         float hs2) {
   const float tx = (float)dx - ex;
   return tx * tx + ty2 <= hs2;
+}
+
+// The run [lo, hi] of a row's offsets that pass the spatial test (ty2 <=
+// hs2), clipped to [-E, E]; lo > hi: none.
+__device__ __forceinline__ void row_run(float ex, float ty2, float hs2, int E,
+                                        int& lo, int& hi) {
+  const float half = sqrtf(hs2 - ty2);
+  lo = (int)ceilf(ex - half);
+  hi = (int)floorf(ex + half);
+  // The estimate is tight unless rounding put an end one off: test both
+  // ends and their outer neighbours, and move only if one fails.
+  if (!(in_disc(lo, ex, ty2, hs2) & !in_disc(lo - 1, ex, ty2, hs2) &
+        in_disc(hi, ex, ty2, hs2) & !in_disc(hi + 1, ex, ty2, hs2))) {
+    while (in_disc(lo - 1, ex, ty2, hs2)) --lo;
+    while (lo <= hi && !in_disc(lo, ex, ty2, hs2)) ++lo;
+    while (in_disc(hi + 1, ex, ty2, hs2)) ++hi;
+    while (hi >= lo && !in_disc(hi, ex, ty2, hs2)) --hi;
+  }
+  lo = max(lo, -E);
+  hi = min(hi, E);
+}
+
+// A query's state: drift (ex, ey) and colour (c0, c1, c2).
+struct Query {
+  float ex, ey, c0, c1, c2;
+};
+
+// One iteration's mean from the sums (an empty window jumps to global (0,
+// 0)) into q; true if it gives q back bit for bit.
+__device__ __forceinline__ bool settle(Query& q, float n, float s_dx,
+                                       float s_dy, float s0, float s1,
+                                       float s2, int x, int y) {
+  const float nn = fmaxf(n, 1.f);
+  const float nx = n > 0.f ? s_dx / nn : -(float)x;
+  const float ny = n > 0.f ? s_dy / nn : -(float)y;
+  const float n0 = s0 / nn, n1 = s1 / nn, n2 = s2 / nn;
+  const bool fixed = __float_as_int(nx) == __float_as_int(q.ex) &&
+                     __float_as_int(ny) == __float_as_int(q.ey) &&
+                     __float_as_int(n0) == __float_as_int(q.c0) &&
+                     __float_as_int(n1) == __float_as_int(q.c1) &&
+                     __float_as_int(n2) == __float_as_int(q.c2);
+  q = {nx, ny, n0, n1, n2};
+  return fixed;
+}
+
+// The query's result.
+__device__ __forceinline__ void store(const Query& q, float* __restrict__ pos,
+                                      float* __restrict__ col, int x, int y,
+                                      int w) {
+  const size_t g = (size_t)y * w + x;
+  pos[2 * g] = (float)x + q.ex;
+  pos[2 * g + 1] = (float)y + q.ey;
+  col[3 * g] = q.c0;
+  col[3 * g + 1] = q.c1;
+  col[3 * g + 2] = q.c2;
 }
 
 __global__ void __launch_bounds__(TW * MAX_TH, 1)
@@ -131,13 +194,11 @@ __global__ void __launch_bounds__(TW * MAX_TH, 1)
   if (y >= h || x >= w) return;
   const int center = (ly + E) * pitch + (lx + E);
   const float4 own = tile.load(center);
-  float c0 = own.x;
-  float c1 = own.y;
-  float c2 = own.z;
-  float ex = 0.f;
-  float ey = 0.f;
+  Query qs = {0.f, 0.f, own.x, own.y, own.z};
   const int key = (1 << COUNT_SHIFT) + E;
   for (int it = 0; it < iters; ++it) {
+    const float ex = qs.ex, ey = qs.ey;
+    const float c0 = qs.c0, c1 = qs.c1, c2 = qs.c2;
     float s0 = 0.f, s1 = 0.f, s2 = 0.f;
     int s_n = 0, s_dx = 0, s_dy = 0;
     // A row with |dy - ey| >= reach + 1 > R has ty2 >= (reach + 1)^2 >
@@ -149,20 +210,8 @@ __global__ void __launch_bounds__(TW * MAX_TH, 1)
       const float ty2 = ty * ty;
       // fl(tx^2 + ty2) >= ty2: no offset of this row passes.
       if (!(ty2 <= hs2)) continue;
-      const float half = sqrtf(hs2 - ty2);
-      int lo = (int)ceilf(ex - half);
-      int hi = (int)floorf(ex + half);
-      // The estimate is tight unless rounding put an end one off: test
-      // both ends and their outer neighbours, and move only if one fails.
-      if (!(in_disc(lo, ex, ty2, hs2) & !in_disc(lo - 1, ex, ty2, hs2) &
-            in_disc(hi, ex, ty2, hs2) & !in_disc(hi + 1, ex, ty2, hs2))) {
-        while (in_disc(lo - 1, ex, ty2, hs2)) --lo;
-        while (lo <= hi && !in_disc(lo, ex, ty2, hs2)) ++lo;
-        while (in_disc(hi + 1, ex, ty2, hs2)) ++hi;
-        while (hi >= lo && !in_disc(hi, ex, ty2, hs2)) --hi;
-      }
-      lo = max(lo, -E);
-      hi = min(hi, E);
+      int lo, hi;
+      row_run(ex, ty2, hs2, E, lo, hi);
       // tag = key + dx runs along the row: the packed sum's term and,
       // less base, the point's tile index.
       const int base = center + dy * pitch - key;
@@ -186,28 +235,69 @@ __global__ void __launch_bounds__(TW * MAX_TH, 1)
       s_dx += (packed & ((1 << COUNT_SHIFT) - 1)) - E * count;
       s_dy += dy * count;
     }
-    const float nn = fmaxf((float)s_n, 1.f);
-    const float nx = s_n > 0 ? (float)s_dx / nn : -(float)x;
-    const float ny = s_n > 0 ? (float)s_dy / nn : -(float)y;
-    const float n0 = s0 / nn, n1 = s1 / nn, n2 = s2 / nn;
-    const bool fixed = __float_as_int(nx) == __float_as_int(ex) &&
-                       __float_as_int(ny) == __float_as_int(ey) &&
-                       __float_as_int(n0) == __float_as_int(c0) &&
-                       __float_as_int(n1) == __float_as_int(c1) &&
-                       __float_as_int(n2) == __float_as_int(c2);
-    ex = nx;
-    ey = ny;
-    c0 = n0;
-    c1 = n1;
-    c2 = n2;
+    // The int sums are exact float32 integers (see the header).
+    const bool fixed = settle(qs, (float)s_n, (float)s_dx, (float)s_dy, s0,
+                              s1, s2, x, y);
     if (fixed) break;
   }
-  const size_t g = (size_t)y * w + x;
-  pos[2 * g] = (float)x + ex;
-  pos[2 * g + 1] = (float)y + ey;
-  col[3 * g] = c0;
-  col[3 * g + 1] = c1;
-  col[3 * g + 2] = c2;
+  store(qs, pos, col, x, y, w);
+}
+
+// The wide form: one query a thread, TW columns by blockDim.x / TW rows of
+// queries a block, the points read from device memory.
+__global__ void __launch_bounds__(TW * MAX_TH, 1)
+    ms_filter_wide_kernel(const float* __restrict__ lab,
+                          const float* __restrict__ sentinel,
+                          float* __restrict__ pos, float* __restrict__ col,
+                          int h, int w, int E, int reach, int iters,
+                          float hs2, float hr2) {
+  const int th = blockDim.x / TW;
+  const int y = blockIdx.y * th + threadIdx.x / TW;
+  const int x = blockIdx.x * TW + threadIdx.x % TW;
+  if (y >= h || x >= w) return;
+  const float sent = *sentinel;
+  const float* own = lab + 3 * ((size_t)y * w + x);
+  Query qs = {0.f, 0.f, __ldg(own), __ldg(own + 1), __ldg(own + 2)};
+  for (int it = 0; it < iters; ++it) {
+    const float ex = qs.ex, ey = qs.ey;
+    const float c0 = qs.c0, c1 = qs.c1, c2 = qs.c2;
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+    float s_n = 0.f, s_dx = 0.f, s_dy = 0.f;
+    const int y_lo = max(-E, (int)floorf(ey) - reach);
+    const int y_hi = min(E, (int)ceilf(ey) + reach);
+    for (int dy = y_lo; dy <= y_hi; ++dy) {
+      const float ty = (float)dy - ey;
+      const float ty2 = ty * ty;
+      if (!(ty2 <= hs2)) continue;
+      int lo, hi;
+      row_run(ex, ty2, hs2, E, lo, hi);
+      const int py = y + dy;
+      const bool row_in = py >= 0 && py < h;
+      const float* row = lab + 3 * (size_t)(row_in ? py : 0) * w;
+      const float fdy = (float)dy;
+      for (int dx = lo; dx <= hi; ++dx) {
+        const int px = x + dx;
+        const bool in = row_in && px >= 0 && px < w;
+        const float* p = row + 3 * (in ? px : 0);
+        const float q0 = in ? __ldg(p) : sent;
+        const float q1 = in ? __ldg(p + 1) : sent;
+        const float q2 = in ? __ldg(p + 2) : sent;
+        const float a = q0 - c0;
+        const float b = q1 - c1;
+        const float c = q2 - c2;
+        if (a * a + b * b + c * c <= hr2) {
+          s_dx = s_dx + (float)dx;
+          s_dy = s_dy + fdy;
+          s_n = s_n + 1.f;
+          s0 = s0 + q0;
+          s1 = s1 + q1;
+          s2 = s2 + q2;
+        }
+      }
+    }
+    if (settle(qs, s_n, s_dx, s_dy, s0, s1, s2, x, y)) break;
+  }
+  store(qs, pos, col, x, y, w);
 }
 
 size_t smem_bytes(int E, int th) {
@@ -216,35 +306,48 @@ size_t smem_bytes(int E, int th) {
 
 }  // namespace
 
+// wide: the wide form (th query rows a block, nothing staged).
 extern "C" int ms_filter_launch(const void* lab, const void* sentinel,
                                 void* pos, void* col, int h, int w, int E,
-                                int reach, int iters, int th, float hs2,
-                                float hr2, void* stream) {
-  if (E < 0 || E > MAX_E || th < MIN_TH || th > MAX_TH)
+                                int reach, int iters, int th, int wide,
+                                float hs2, float hr2, void* stream) {
+  if (E < 0 || (E > MAX_E && !wide) || th < MIN_TH || th > MAX_TH)
     return (int)cudaErrorInvalidValue;
+  const dim3 grid((w + TW - 1) / TW, (h + th - 1) / th);
+  if (wide) {
+    ms_filter_wide_kernel<<<grid, TW * th, 0, (cudaStream_t)stream>>>(
+        (const float*)lab, (const float*)sentinel, (float*)pos, (float*)col,
+        h, w, E, reach, iters, hs2, hr2);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = smem_bytes(E, th);
   cudaError_t err = cudaFuncSetAttribute(
       ms_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((w + TW - 1) / TW, (h + th - 1) / th);
   ms_filter_kernel<<<grid, TW * th, smem, (cudaStream_t)stream>>>(
       (const float*)lab, (const float*)sentinel, (float*)pos, (float*)col, h,
       w, E, reach, iters, hs2, hr2);
   return (int)cudaGetLastError();
 }
 
-// Blocks of the kernel one SM holds at once for window E and th query rows,
-// or -(CUDA error).
-extern "C" int ms_filter_blocks_per_sm(int E, int th) {
-  const size_t smem = smem_bytes(E, th);
+// Blocks of the kernel (wide: of the wide form) one SM holds at once for
+// window E and th query rows, or -(CUDA error).
+extern "C" int ms_filter_blocks_per_sm(int E, int th, int wide) {
   int blocks = 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      ms_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err == cudaSuccess)
+  cudaError_t err;
+  if (wide) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, ms_filter_kernel, TW * th, smem);
+        &blocks, ms_filter_wide_kernel, TW * th, 0);
+  } else {
+    const size_t smem = smem_bytes(E, th);
+    err = cudaFuncSetAttribute(ms_filter_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, ms_filter_kernel, TW * th, smem);
+  }
   return err == cudaSuccess ? blocks : -(int)err;
 }
 

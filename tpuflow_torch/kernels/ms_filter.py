@@ -18,7 +18,12 @@ row by row, only the run of offsets that passes the spatial test, its
 ends found by the exact float32 test, tests colour there, and stops at
 the first iteration that gives its state back bit for bit; the source
 says what bounds it on the H100 and how the design answers), on a CPU
-tensor through :func:`mean_shift_filter_plain`.
+tensor through :func:`mean_shift_filter_plain`. The form is picked by the
+window alone (:func:`form_for`): the staged form while one query row's
+tile of the window fits a block's shared memory (E <= 52), else the wide
+form, which reads each point from device memory (the same runs, order
+and exit; dx, dy and the count summed in float as the plain version sums
+them).
 """
 
 from __future__ import annotations
@@ -39,18 +44,18 @@ LAUNCHES = 0
 # rows of an odd pitch.
 TILE_W, TILE_H = 32, 24
 POINT_BYTES = 16
-# The widest window the kernel's packed row sums hold (its launcher
-# refuses more; shared memory already caps E at 52).
+# The widest window the staged form's packed row sums hold (its launcher
+# refuses more; shared memory already caps its E at 52).
 MAX_E = 127
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from csrc/ms_filter.cu."""
     lib.ms_filter_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
         + [ctypes.c_void_p])
     lib.ms_filter_launch.restype = ctypes.c_int
-    lib.ms_filter_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+    lib.ms_filter_blocks_per_sm.argtypes = [ctypes.c_int] * 3
     lib.ms_filter_blocks_per_sm.restype = ctypes.c_int
     lib.ms_filter_error_string.argtypes = [ctypes.c_int]
     lib.ms_filter_error_string.restype = ctypes.c_char_p
@@ -66,24 +71,28 @@ def smem_bytes(E: int, tile_h: int) -> int:
     return POINT_BYTES * (tile_h + 2 * E) * ((TILE_W + 2 * E) | 1)
 
 
+def form_for(E: int) -> str:
+    """"staged" while one query row's tile fits a block's shared memory and
+    the packed row sums hold E, else "wide" (nothing staged)."""
+    return ("staged" if E <= MAX_E
+            and smem_bytes(E, 1) <= _build.MAX_SMEM_BYTES else "wide")
+
+
 def tile_rows(E: int) -> int:
-    """The query rows of a block at window E: TILE_H, or the most whose
-    tile fits one block's shared memory. Raises if not one row fits."""
+    """The query rows of a block at window E: TILE_H, or in the staged form
+    the most whose tile fits one block's shared memory."""
     th = TILE_H
-    while th and smem_bytes(E, th) > _build.MAX_SMEM_BYTES:
-        th -= 1
-    if not th:
-        raise ValueError(f"mean_shift_filter: window E={E} needs "
-                         f"{smem_bytes(E, 1)} B of shared memory per block "
-                         f"(> {_build.MAX_SMEM_BYTES})")
+    if form_for(E) == "staged":
+        while smem_bytes(E, th) > _build.MAX_SMEM_BYTES:
+            th -= 1
     return th
 
 
 def blocks_per_sm(E: int, tile_h: int) -> int:
-    """Blocks of the kernel one SM of the current card holds at once
-    (CUDA's occupancy calculator)."""
+    """Blocks of the kernel (the form :func:`form_for` picks) one SM of the
+    current card holds at once (CUDA's occupancy calculator)."""
     lib = _lib()
-    n = lib.ms_filter_blocks_per_sm(E, tile_h)
+    n = lib.ms_filter_blocks_per_sm(E, tile_h, int(form_for(E) == "wide"))
     _build.check_launch(lib, "ms_filter", -n if n < 0 else 0)
     return n
 
@@ -150,8 +159,8 @@ def mean_shift_filter(lab: torch.Tensor, kernel_spatial: int = 20,
     """``iters`` mean-shift steps; returns (pos (H, W, 2) xy, color (H, W, 3)).
 
     CPU tensors take :func:`mean_shift_filter_plain`; a CUDA tensor
-    (contiguous float32 (H, W, 3)) takes one launch of the CUDA kernel, or
-    raises.
+    (contiguous float32 (H, W, 3)) takes one launch of the CUDA kernel in
+    the form :func:`form_for` picks, or raises.
     """
     global LAUNCHES
     if lab.dim() != 3 or lab.shape[-1] != 3:
@@ -178,7 +187,8 @@ def mean_shift_filter(lab: torch.Tensor, kernel_spatial: int = 20,
         rc = lib.ms_filter_launch(
             lab.data_ptr(), sentinel.data_ptr(), pos.data_ptr(),
             col.data_ptr(), h, w, E, math.ceil(kernel_spatial), int(iters),
-            th, float(kernel_spatial) ** 2, float(kernel_intensity) ** 2,
+            th, int(form_for(E) == "wide"), float(kernel_spatial) ** 2,
+            float(kernel_intensity) ** 2,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, "ms_filter", rc)
     LAUNCHES += 1
