@@ -26,7 +26,8 @@ Phases, each printing one line of its own numbers:
    ragged KITTI size), HS also at 3x3 there; IRLS 512 sweeps at fuse 16 at
    each level of BA's pyramid, where the launcher picks its staged tile
    per level (bitwise, launches counted, device ms per level); sepconv at
-   1080x1920 with 48, 17, 15, 9, 3 and 48x15 taps and at 375x1242 with 64
+   1080x1920 with 48, 17, 15, 9, 3 and 48x15 taps, at 375x1242 with 64,
+   and Lucas-Kanade's 3 taps at 376x1240 and 15 at 540x960 and 270x480
    (blocks per SM, registers and spills of the instantiation each runs:
    15, 48 and 64 have their count compiled in, the others take it at run
    time), 161 taps at 256x320 (from device memory) and 701 at 64x96 (the
@@ -101,7 +102,38 @@ Phases, each printing one line of its own numbers:
    per pair; its CPU check is the same three-frame run on a 96x160 crop
    (search 15, 256 sweeps): equal labels, region counts, BM winners and
    time directions, and u, v within PATH_TOL.
-6. dist    — the sharded path (``tpuflow_torch.dist``) through
+6. lk      — Lucas-Kanade, each path run once through its entry point
+   with the counters zeroed just before and read just after (the launches
+   join the main paths'): ``solvers.good_features_to_track(500, 0.01,
+   10)`` on the KITTI frame (5 sepconv launches: the 3-tap gradients and
+   Shi-Tomasi box sums) and ``solvers.track_points`` (window 21, 3
+   levels, 30 iterations; no kernel) to the next frame, which shows the
+   scene moved by LK_SHIFT; ``solvers.dense_lucas_kanade`` at 1080x1920
+   (window 15, 3 levels, 3 iterations: 33 sepconv launches); and
+   ``pipeline.streaming.feature_tracking_stream`` over TRACK_FRAMES
+   SyntheticSource frames at 480x640 (5 launches a re-seed). Against the
+   float32 CPU: the Shi-Tomasi response within an ulp of its square root
+   (PyTorch's CPU float32 root is not always correctly rounded, the
+   card's is), the same corner list, equal status and tracked points
+   within LK_MEDIAN_TOL / LK_MAX_TOL px (the stream's within
+   STREAM_MAX_TOL), dense LK on a 270x480 crop within PATH_TOL, the
+   stream's accepted tracks equal; the median error against the known
+   shift below LK_SHIFT_TOL; ms per call (host clock around a synced
+   call); a profiler frame each of the tracking, dense LK and the stream.
+7. affine  — ``solvers.multiple_motion_affine`` at 376x1240, 5 levels
+   (no kernel), its flow at the frame centre along the known shift
+   (AFFINE_ALONG, AFFINE_ACROSS) and a BM_CROP crop against the CPU
+   within PATH_TOL; the flagship in mode AFFINE with its defaults over
+   the Voronoi pan (pair 1 cold: two mean-shift launches, pair 2
+   bidirectional: one; no gated sweep), EPE against the pan below
+   AFFINE_EPE_TOL, the per-region fit ``affine_parametric_flow`` on a
+   BM_CROP crop of pair 2's inputs against the CPU within PATH_TOL, ms
+   per pair; ``pipeline.streaming.bm_flow_stream`` over the same three
+   frames (default mode; its launches counted) bitwise equal to phase
+   main's sequential pairs; a profiler frame each of the global fit and
+   an AFFINE pair. Both phases and their counted main paths log their
+   seconds.
+8. dist    — the sharded path (``tpuflow_torch.dist``) through
    ``run_on_mesh``. (a) One NCCL rank on the card, at world size 1 (the
    whole frame is one tile, the halos zeros):
    ``horn_schunck_sharded_fused`` and ``horn_schunck_sharded`` at
@@ -176,6 +208,43 @@ BM_NOISE = (1.0, 1.0, 2.5)
 BM_CROP = (slice(100, 196), slice(400, 560))
 BM_CROP_SEARCH, BM_CROP_ITERS = 15, 256
 GATED_SWEEPS, GATED_FUSE = 256, 16
+# Lucas-Kanade with LucasKanadeOF's settings (LucasKanadeOF.cpp:50-114):
+# goodFeaturesToTrack(500, 0.01, 10) and calcOpticalFlowPyrLK (window 21,
+# 3 levels, 30 iterations) on the KITTI frames, whose next frame is the
+# scene moved by LK_SHIFT (x, y); dense LK at 1080x1920 with its defaults
+# (window 15, 3 levels, 3 iterations), held against the CPU on a crop;
+# feature_tracking_stream over SyntheticSource frames at VideoFeaturesOF's
+# working size (frames, (h, w), (dx, dy) per frame: |dx| + |dy| well past
+# the acceptance rule's 2 px). Card vs float32 CPU: the same corners, the
+# same status, tracked points within LK_MEDIAN_TOL (median) and LK_MAX_TOL
+# (max) px, the stream's within STREAM_MAX_TOL: a point whose step^2 sits
+# near eps^2 (0.01 px) can take one Newton step more or fewer when the two
+# devices sum a window in other orders, and a coarse level's difference
+# doubles per finer level. Measured on the H100: median 0 for both, max
+# 6.3e-5 px (KITTI) and 1.1e-3 px (the stream); each limit is ~10x that.
+# The tracks' median error against the known KITTI shift: below
+# LK_SHIFT_TOL px (measured 6.5e-5).
+LK_CORNERS = (500, 0.01, 10.0)
+LK_TRACK = dict(win=21, max_level=3, iters=30)
+LK_SHIFT, LK_SHIFT_TOL = (-2.0, -4.0), 1e-3  # median error, px
+DENSE_LK = dict(win=15, levels=3, iters=3)
+DENSE_LK_CROP = (slice(0, 270), slice(0, 480))
+TRACK_FRAMES, TRACK_HW, TRACK_SHIFT = 5, (480, 640), (3.0, -2.0)
+LK_MEDIAN_TOL, LK_MAX_TOL, STREAM_MAX_TOL = 1e-5, 1e-3, 1e-2
+# multiple_motion_affine at the KITTI frames, 5 levels (MultipleMotionParam's
+# default), held against the CPU on BM_CROP of them; the flagship in mode
+# AFFINE with its defaults on the Voronoi pan, its per-region fit held
+# against the CPU on BM_CROP of pair 2's inputs. The reference's omega =
+# 1e-4 descent recovers only part of a translation in its iteration
+# budget (tpuflow's tests/test_affine.py), so the global fit is held to
+# the known shift's direction: its flow at the frame centre, projected on
+# the shift, within AFFINE_ALONG of the shift's length, and at most
+# AFFINE_ACROSS px across it (measured: 0.51 of it, 0.011 px across). The
+# AFFINE flagship's composed flow: EPE against the pan below
+# AFFINE_EPE_TOL px (measured 0.237 and 0.024 px).
+AFFINE_LEVEL = 5
+AFFINE_ALONG, AFFINE_ACROSS, AFFINE_EPE_TOL = (0.25, 1.0), 0.1, 0.5
+AFFINE_PROFILED = 256
 # Blocks deeper than one launch of the kernel takes (HS at window 5: 15;
 # the IRLS kernels: 35), which the wrappers split into launches.
 DEEP_HS_FUSE, DEEP_IRLS_FUSE = 16, 40
@@ -186,10 +255,15 @@ WIDE_WINDOWS, WIDE_SWEEPS, WIDE_ITERS = (65, 129), 3, 10
 # sepconv's rows (output shape, nky, nkx): Farneback's box (48 stream,
 # 15 demo3's winsize, 64 demo; counts compiled in) and, through the
 # instantiation that takes the count at run time, demo3's pyramid blur of
-# the full frame (3 and 9 taps), the poly taps (17) and a mixed pair.
+# the full frame (3 and 9 taps), the poly taps (17) and a mixed pair; then
+# Lucas-Kanade's: the 3-tap gradients and Shi-Tomasi box at 376x1240, the
+# tracking stream's at 480x640, dense LK's gradients at its three levels
+# (1080x1920 above) and its 15-tap box at the two coarser ones.
 SEP_TAPS = ((HS_SHAPE, 48, 48), (HS_SHAPE, 17, 17), (HS_SHAPE, 15, 15),
             (RAGGED_SHAPE, 64, 64), (HS_SHAPE, 9, 9), (HS_SHAPE, 3, 3),
-            (HS_SHAPE, 48, 15))
+            (HS_SHAPE, 48, 15), (BA_SHAPE, 3, 3), (TRACK_HW, 3, 3),
+            ((540, 960), 3, 3), ((270, 480), 3, 3), ((540, 960), 15, 15),
+            ((270, 480), 15, 15))
 # ... and past the kernel's parameter struct (161 taps, from device
 # memory) and past its staged tile (701 taps, the wide form, two launches),
 # on small frames.
@@ -1907,10 +1981,368 @@ def profile_frame(phase: str, fn, top: int = 8, **what) -> None:
               if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     log(phase, **what, profile_wall_ms=wall_ms, device_busy_ms=busy_ms,
-        device_idle_share=1.0 - busy_ms / wall_ms)
+        device_idle_share=1.0 - busy_ms / wall_ms,
+        profile_seconds=time.perf_counter() - t0)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(phase, **what, profile_op=json.dumps(e.key[:60]),
             ms=e.self_device_time_total / 1e3, calls=e.count)
+
+
+# -- Lucas-Kanade and the affine fits ----------------------------------------
+
+
+def synced_ms(fn, reps: int = 3) -> list[float]:
+    """Host-clock ms of each of ``reps`` calls of fn(), each ending in a
+    synchronize (the caller's view: a path's host syncs included)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
+def corners(frame):
+    from tpuflow_torch.solvers import good_features_to_track
+
+    return good_features_to_track(frame, *LK_CORNERS)
+
+
+def track(prev, nxt, pts):
+    from tpuflow_torch.solvers import track_points
+
+    return track_points(prev, nxt, pts, **LK_TRACK)
+
+
+def dense_lk(prev, nxt):
+    from tpuflow_torch.solvers import dense_lucas_kanade
+
+    return dense_lucas_kanade(prev, nxt, **DENSE_LK)
+
+
+def track_frames():
+    from tpuflow_torch.pipeline.streaming import SyntheticSource
+
+    h, w = TRACK_HW
+    dx, dy = TRACK_SHIFT
+    return list(SyntheticSource(n_frames=TRACK_FRAMES, h=h, w=w, dx=dx,
+                                dy=dy))
+
+
+def tracking_stream(frames, device):
+    """feature_tracking_stream over ``frames``; returns its outputs and
+    the number of re-seeds it logged."""
+    import io
+
+    from tpuflow_torch.pipeline.streaming import feature_tracking_stream
+    from tpuflow_torch.utils import telemetry
+
+    sink = io.StringIO()
+    old = telemetry.get_telemetry()
+    telemetry.set_telemetry(telemetry.Telemetry(sink))
+    try:
+        outs = list(feature_tracking_stream(frames, *LK_CORNERS,
+                                            device=device))
+    finally:
+        telemetry.set_telemetry(old)
+    reseeds = sum(json.loads(line)["event"] == "stream.reseed"
+                  for line in sink.getvalue().splitlines())
+    return outs, reseeds
+
+
+def main_lk(dev, totals: dict):
+    """The Lucas-Kanade paths once each, counted: the corners (5 sepconv
+    launches), the tracking (no kernel), dense LK at 1080x1920 (33) and
+    the tracking stream (5 a re-seed)."""
+    prev, nxt = f32(dev, *frames_kitti())
+    pts = counted("good_features_to_track", lambda: corners(prev),
+                  {"sep_conv2d_valid": 5}, totals)
+    tracked = counted("track_points", lambda: track(prev, nxt, pts), {},
+                      totals)
+    hd = f32(dev, *frames_1080p())
+    levels, iters = DENSE_LK["levels"], DENSE_LK["iters"]
+    dense = counted("dense_lucas_kanade", lambda: dense_lk(*hd),
+                    {"sep_conv2d_valid": levels * (2 + 3 + 2 * iters)},
+                    totals)
+    frames = track_frames()
+    stream = counted("feature_tracking_stream",
+                     lambda: tracking_stream(frames, dev),
+                     lambda r: {"sep_conv2d_valid": 5 * r[1]}, totals)
+    return (prev, nxt, pts, tracked), (hd, dense), (frames, stream)
+
+
+def check_tracks(name, card, cpu, max_tol=LK_MAX_TOL) -> dict:
+    """Card vs CPU tracked points: equal status, the displacement's
+    median and max |d| within LK_MEDIAN_TOL and ``max_tol`` px."""
+    (p, st), (pc, stc) = card, cpu
+    p, st = p.cpu().numpy().astype(np.float64), st.cpu().numpy()
+    pc, stc = np.asarray(pc, np.float64), np.asarray(stc)
+    if not np.array_equal(st, stc):
+        raise AssertionError(f"{name}: status differs at "
+                             f"{int((st != stc).sum())} of {len(st)} points")
+    d = np.hypot(*(p - pc).T)
+    med, mx = float(np.median(d)), float(d.max())
+    if not (med <= LK_MEDIAN_TOL and mx <= max_tol):
+        raise AssertionError(f"{name}: card vs CPU |d| median {med}, max "
+                             f"{mx} px (tolerance {LK_MEDIAN_TOL}, "
+                             f"{max_tol})")
+    return {"points": len(st), "status_ok": int(st.sum()),
+            "median_abs_d_px": med, "max_abs_d_px": mx,
+            "points_moved": int((d > 0).sum())}
+
+
+def phase_lk(dev, sparse, dense, stream) -> None:
+    """Lucas-Kanade on the card against the float32 CPU: the Shi-Tomasi
+    response (within an ulp of its square root) and the corner list
+    (equal), the tracking (status, displacement), the known KITTI shift,
+    dense LK on a crop within PATH_TOL, the stream; ms per call, a
+    profiler frame each of sparse tracking, dense LK at 1080x1920 and the
+    stream."""
+    import torch
+
+    from tpuflow_torch.solvers import lucas_kanade
+
+    t0 = time.perf_counter()
+    prev, nxt, pts, (new_pts, status) = sparse
+    cprev, cnxt = prev.cpu(), nxt.cpu()
+    resp = lucas_kanade.min_eigenvalue_response(prev).cpu()
+    resp_cpu = lucas_kanade.min_eigenvalue_response(cprev)
+    # The sepconv kernel is bitwise its plain version and the rest is IEEE
+    # elementwise arithmetic, except the square root: the card's is
+    # correctly rounded, PyTorch's CPU float32 one is an ulp off at ~0.7%
+    # of elements. So the two responses may differ by one ulp of the root
+    # (at most tr/2) and the subtraction's rounding (one ulp of the
+    # response), and nowhere more.
+    sxx, syy, _ = lucas_kanade.structure_tensor(cprev)
+    ulp = (np.spacing(np.abs((sxx + syy).numpy() / np.float32(2)))
+           + np.spacing(np.abs(resp_cpu.numpy())))
+    d = (resp - resp_cpu).abs().numpy()
+    if not (d <= ulp).all():
+        raise AssertionError("the Shi-Tomasi response differs from the CPU's "
+                             f"by more than an ulp of its square root at "
+                             f"{int((d > ulp).sum())} pixels")
+    pts_cpu = corners(cprev)
+    if not np.array_equal(pts, pts_cpu):
+        raise AssertionError(f"good_features_to_track: card {len(pts)} "
+                             f"corners, CPU {len(pts_cpu)}, not the same "
+                             "list")
+    found = pts.shape[0]
+    tracks = check_tracks("track_points", (new_pts, status),
+                          track(cprev, cnxt, pts))
+    ok = status.cpu().numpy()
+    moved = new_pts.cpu().numpy()[ok] - pts[ok]
+    err = np.hypot(moved[:, 0] - LK_SHIFT[0], moved[:, 1] - LK_SHIFT[1])
+    if not np.median(err) < LK_SHIFT_TOL:
+        raise AssertionError(f"track_points: median error {np.median(err)}"
+                             f" px against the known shift {LK_SHIFT}")
+    log("lk", path="sparse", shape=tuple(prev.shape), corners=found,
+        shi_tomasi_max_abs_d_vs_cpu=float(d.max()),
+        shi_tomasi_px_differing=int((d > 0).sum()),
+        median_err_vs_known_shift_px=float(np.median(err)),
+        max_err_vs_known_shift_px=float(err.max()), **tracks,
+        card_ms_corners=synced_ms(lambda: corners(prev)),
+        card_ms_track=synced_ms(lambda: track(prev, nxt, pts), 5),
+        chip_host_cpu_f32_ms_track=host_ms(lambda: track(cprev, cnxt, pts)))
+    profile_frame("lk", lambda: track(prev, nxt, pts), path="track_points")
+
+    hd, (u, v) = dense
+    if tuple(u.shape) != HS_SHAPE or not all(
+            bool(torch.isfinite(f).all()) for f in (u, v)):
+        raise AssertionError(f"dense LK: flow is not finite of {HS_SHAPE}")
+    crop = [f[DENSE_LK_CROP].contiguous() for f in hd]
+    err = check_flow_vs_cpu("dense LK crop", dense_lk(*crop),
+                            dense_lk(*(f.cpu() for f in crop)))
+    log("lk", path="dense", shape=HS_SHAPE, **DENSE_LK,
+        median_u=float(u.median()), median_v=float(v.median()),
+        crop=tuple(crop[0].shape), max_abs_err_vs_cpu=err,
+        card_ms=synced_ms(lambda: dense_lk(*hd)))
+    profile_frame("lk", lambda: dense_lk(*hd), path="dense_lucas_kanade")
+
+    frames, (outs, reseeds) = stream
+    if len(outs) != TRACK_FRAMES - 1:
+        raise AssertionError(f"feature_tracking_stream: {len(outs)} outputs")
+    cpu_outs, cpu_reseeds = tracking_stream(frames, "cpu")
+    med = mx = 0.0
+    for k, ((g, p, pp, acc), (gc, pc, ppc, accc)) in enumerate(
+            zip(outs, cpu_outs)):
+        if not np.array_equal(acc, accc):
+            raise AssertionError(f"stream frame {k + 1}: accepted tracks "
+                                 "differ from the CPU's")
+        both = check_tracks(f"stream frame {k + 1}",
+                            (torch.from_numpy(p), torch.from_numpy(acc[acc])),
+                            (pc, accc[accc]), STREAM_MAX_TOL)
+        med, mx = max(med, both["median_abs_d_px"]), max(
+            mx, both["max_abs_d_px"])
+    d = outs[-1][1] - outs[-1][2]
+    log("lk", path="feature_tracking_stream", shape=TRACK_HW,
+        frames=TRACK_FRAMES, reseeds=reseeds, cpu_reseeds=cpu_reseeds,
+        kept=[len(o[1]) for o in outs],
+        median_step_px=(float(np.median(d[:, 0])),
+                        float(np.median(d[:, 1]))),
+        median_abs_d_vs_cpu_px=med, max_abs_d_vs_cpu_px=mx,
+        card_ms_stream=synced_ms(lambda: tracking_stream(frames, dev), 2))
+    profile_frame("lk", lambda: tracking_stream(frames, dev),
+                  path="feature_tracking_stream")
+    log("lk", seconds=time.perf_counter() - t0)
+
+
+def affine_call(frames, device):
+    from tpuflow_torch.core.config import MultipleMotionParam
+    from tpuflow_torch.solvers import multiple_motion_affine
+
+    return multiple_motion_affine(*frames, 255.0,
+                                  MultipleMotionParam(level=AFFINE_LEVEL))
+
+
+def main_affine(dev, totals: dict, bm_outs):
+    """The affine paths once each, counted: the global fit (no kernel),
+    the flagship in mode AFFINE over the Voronoi pan (two filter launches,
+    then one; no gated sweep) and bm_flow_stream (default mode) over the
+    same three frames, checked against phase main's sequential pairs."""
+    from tpuflow_torch.core.config import MODE_OUTPUT_AFFINE_BLOCKMATCHING
+    from tpuflow_torch.pipeline.streaming import bm_flow_stream
+    from tpuflow_torch.solvers.bm_flow import BMFlowState
+
+    kitti = f32(dev, *frames_kitti())
+    t0 = time.perf_counter()
+    a = counted("multiple_motion_affine", lambda: affine_call(kitti, dev),
+                {}, totals)
+    a_ms = 1e3 * (time.perf_counter() - t0)
+    frames, _ = voronoi_frames()
+    blocks, pair_ms = [], []
+    state = BMFlowState()
+    kw = dict(mode=MODE_OUTPUT_AFFINE_BLOCKMATCHING, blocks=blocks)
+    t0 = time.perf_counter()
+    out1, state = counted("flagship_affine_pair1_cold",
+                          lambda: bm_pair(frames, 0, state, dev, **kw),
+                          {"mean_shift_filter": 2}, totals)
+    pair_ms.append(1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    out2, state = counted("flagship_affine_pair2_bidirectional",
+                          lambda: bm_pair(frames, 1, state, dev, **kw),
+                          {"mean_shift_filter": 1}, totals)
+    pair_ms.append(1e3 * (time.perf_counter() - t0))
+    if blocks != [0, 0]:
+        raise AssertionError(f"mode AFFINE ran gated sweeps: {blocks}")
+    sblocks = []
+    stream = counted(
+        "bm_flow_stream", lambda: list(bm_flow_stream(
+            frames, device=dev, blocks=sblocks)),
+        lambda _: {"mean_shift_filter": 3,
+                   "irls_gated_sweeps": sum(sblocks)}, totals)
+    for k, (o_s, o_q) in enumerate(zip(stream, bm_outs)):
+        for f in ("u", "v", "t", "bm_u", "bm_v"):
+            if not np.array_equal(getattr(o_s, f), getattr(o_q, f)):
+                raise AssertionError(f"bm_flow_stream pair {k + 1}: {f} "
+                                     "differs from the sequential driver")
+    if len(stream) != 2:
+        raise AssertionError(f"bm_flow_stream yielded {len(stream)} pairs")
+    return (kitti, a, a_ms), (frames, (out1, out2), state, pair_ms)
+
+
+def affine_crop_inputs(dev, state, out, crop=None):
+    """Pair 2's per-region fit inputs toward the previous frame, cut to
+    ``crop`` (default BM_CROP) and relabelled 0..n-1: (reference Lab,
+    interest Lab, mv_u, mv_v) on ``dev``, the labels and the region
+    count."""
+    import torch
+
+    crop = BM_CROP if crop is None else crop
+    labels = state.segmentations[1].labels[crop]
+    uniq, inv = np.unique(labels, return_inverse=True)
+    fields = [state.lab_frames[2][crop], state.lab_frames[1][crop],
+              torch.from_numpy(out.bm_u[crop]),
+              torch.from_numpy(out.bm_v[crop])]
+    return ([f.to(dev).contiguous() for f in fields],
+            inv.reshape(labels.shape).astype(np.int32), len(uniq))
+
+
+def phase_affine(dev, glob, flagship) -> None:
+    """The global fit: the recovered translation against the known KITTI
+    shift, card vs float32 CPU on BM_CROP of the frames (within
+    PATH_TOL), ms per call; the flagship in mode AFFINE: finite flow of
+    the frame's shape, EPE against the pan, ms per pair, its per-region
+    fit card vs CPU on a crop of pair 2's inputs (within PATH_TOL); a
+    profiler frame each of the global fit and pair 2."""
+    from tpuflow_torch.core.config import MODE_OUTPUT_AFFINE_BLOCKMATCHING
+    from tpuflow_torch.pyramid import dt_level, grad_level
+    from tpuflow_torch.solvers import affine_parametric_flow
+    from tpuflow_torch.solvers.affine import (SIGMA_D_AFFINE,
+                                              irls_affine_level)
+    from tpuflow_torch.solvers.bm_flow import BMFlowState
+    from tpuflow_torch.utils.numerics import true_div
+
+    t0 = time.perf_counter()
+    kitti, a, a_ms = glob
+    norm = [true_div(f, 255.0) for f in kitti]
+    h, w = kitti[0].shape
+    a_np = a.cpu().numpy().astype(np.float64)
+    centre = (float(a_np[0] + a_np[1] * w / 2 + a_np[2] * h / 2),
+              float(a_np[3] + a_np[4] * w / 2 + a_np[5] * h / 2))
+    shift = np.asarray(LK_SHIFT)
+    along = float(np.dot(centre, shift) / np.dot(shift, shift))
+    across = float(abs(centre[0] * shift[1] - centre[1] * shift[0])
+                   / np.hypot(*shift))
+    lo, hi = AFFINE_ALONG
+    if not (np.isfinite(a_np).all() and lo <= along <= hi
+            and across <= AFFINE_ACROSS):
+        raise AssertionError(f"multiple_motion_affine: a = {a_np}, flow at "
+                             f"the centre {centre}: {along} of the known "
+                             f"shift {LK_SHIFT}, {across} px across it")
+    crop = [f[BM_CROP].contiguous() for f in kitti]
+    err = check_close("multiple_motion_affine crop card vs CPU",
+                      [(affine_call(crop, dev), affine_call(
+                          [f.cpu() for f in crop], "cpu"))], PATH_TOL)
+    log("affine", path="multiple_motion_affine", shape=(h, w),
+        level=AFFINE_LEVEL, a=a_np.tolist(), flow_at_centre=centre,
+        known_shift=LK_SHIFT, share_along_shift=along,
+        px_across_shift=across, crop=tuple(crop[0].shape),
+        max_abs_err_vs_cpu=err,
+        card_ms=[a_ms] + synced_ms(lambda: affine_call(kitti, dev), 1))
+    # The loop's busy share from AFFINE_PROFILED iterations of the finest
+    # level (the whole fit is ~4,900 and its trace takes longer to read
+    # than to run).
+    gx, gy = grad_level(*norm)  # the two-frame sum, as the fit takes it
+    profile_frame("affine", lambda: irls_affine_level(
+        a, gx, gy, dt_level(*norm), SIGMA_D_AFFINE, AFFINE_PROFILED, 0.0),
+        path="irls_affine_level", iterations=AFFINE_PROFILED)
+
+    frames, outs, state, pair_ms = flagship
+    for k, out in enumerate(outs):
+        fields = (out.u, out.v, out.bm_u, out.bm_v)
+        if any(f.shape != BM_SHAPE or not np.isfinite(f).all()
+               for f in fields):
+            raise AssertionError(f"flagship AFFINE pair {k + 1}: flow is "
+                                 f"not finite of shape {BM_SHAPE}")
+        quality = bm_quality(dev, frames, out, out.bidirectional)
+        if not quality["epe_uv"] < AFFINE_EPE_TOL:
+            raise AssertionError(f"flagship AFFINE pair {k + 1}: EPE "
+                                 f"{quality['epe_uv']} px against the pan")
+        log("affine", path="flagship_affine", pair=k + 1,
+            n_regions=out.segmentation.n_regions, **quality)
+    fields, labels, n = affine_crop_inputs(dev, state, outs[1])
+    kw = dict(iter_max=256, normalize_steps=True)
+    card = affine_parametric_flow(*fields, labels, n, **kw)
+    cpu = affine_parametric_flow(*(f.cpu() for f in fields), labels, n, **kw)
+    err = check_close("affine_parametric_flow crop card vs CPU",
+                      list(zip(card, cpu)), PATH_TOL)
+    st = BMFlowState()
+    times = [pair_ms, [synced_ms(lambda k=k: bm_pair(
+        frames, k, st, dev, mode=MODE_OUTPUT_AFFINE_BLOCKMATCHING),
+        1)[0] for k in (0, 1)]]
+    log("affine", path="flagship_affine", shape=BM_SHAPE,
+        crop=tuple(labels.shape), crop_regions=n, max_abs_err_vs_cpu=err,
+        card_ms_region_fit_crop=synced_ms(
+            lambda: affine_parametric_flow(*fields, labels, n, **kw)),
+        card_ms_pair1_cold=[t[0] for t in times],
+        card_ms_pair2_bidirectional=[t[1] for t in times])
+    profile_frame("affine", lambda: bm_pair(
+        frames, 1, st, dev, mode=MODE_OUTPUT_AFFINE_BLOCKMATCHING),
+        path="flagship_affine_pair2")
+    log("affine", seconds=time.perf_counter() - t0)
 
 
 # -- the sharded path ---------------------------------------------------------
@@ -2187,6 +2619,14 @@ def main() -> None:
     phase_ba(*ba)
     phase_fb(fb_runs, stream)
     phase_bm(dev, *bm)
+    t0 = time.perf_counter()
+    lk = main_lk(dev, launches)
+    log("main", paths="lk", seconds=time.perf_counter() - t0)
+    phase_lk(dev, *lk)
+    t0 = time.perf_counter()
+    affine = main_affine(dev, launches, bm[1])
+    log("main", paths="affine", seconds=time.perf_counter() - t0)
+    phase_affine(dev, *affine)
     for k, n in phase_dist(dev, ba).items():
         launches[k] = launches.get(k, 0) + n
     kernels = []

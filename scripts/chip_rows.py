@@ -12,7 +12,10 @@ rows: ``sepconv_rows``, ``resident_rows``, ``irls_levels``,
 Farneback's FB_PROFILED config at 1080x1920, ms per frame and one
 profiler frame (the card's busy time and idle share), or ``blur_ab``:
 blur-solve against its plain version at the winsizes a parent's kernel
-also takes (chip_smoke.BLUR_AB), through the wrapper alone.
+also takes (chip_smoke.BLUR_AB), through the wrapper alone, or
+``lk_affine``: chip_smoke.py's phases lk and affine, or
+``sync_cadence``: the three loops that read a stop flag back once per
+block of steps, each timed at several block lengths (CADENCES).
 
 Without ``--repo`` it first runs chip_smoke.py's build phase, so the rows
 log blocks per SM and ptxas's registers and spills. With ``--repo`` the
@@ -28,6 +31,7 @@ from __future__ import annotations
 import argparse
 import inspect
 import sys
+import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
@@ -57,7 +61,81 @@ def blur_ab(cs, dev) -> None:
                       cs.blur_bound(*Mp.shape[1:], winsize), winsize=winsize)
 
 
-SPECIAL = {"fb_profiled": fb_profiled, "blur_ab": blur_ab}
+def lk_affine(cs, dev) -> None:
+    """chip_smoke.py's phases lk and affine alone (the flagship's default
+    pairs, which bm_flow_stream is held to, run first)."""
+    launches = {}
+    cs.phase_lk(dev, *cs.main_lk(dev, launches))
+    outs, _ = cs.bm_sequence(cs.voronoi_frames()[0], dev)
+    cs.phase_affine(dev, *cs.main_affine(dev, launches, outs))
+    cs.log("rows", launches=launches)
+
+
+# (loop, module, constant, block lengths): track_points' done mask,
+# irls_affine_level's stop flag (10**6: never read) and the per-region
+# affine fit's all-done flag.
+CADENCES = (("track_points", "lucas_kanade", "DONE_CHECK_EVERY", (1, 5, 30)),
+            ("multiple_motion_affine", "affine", "STOP_CHECK_EVERY",
+             (1, 16, 64, 256, 10**6)),
+            ("affine_parametric_flow", "bm_flow", "AFFINE_CHECK_EVERY",
+             (1, 4, 16, 64, 256)))
+CADENCE_ROUNDS = 3
+
+
+def sync_cadence(cs, dev) -> None:
+    """Each loop of CADENCES on its chip_smoke.py inputs (sparse LK and
+    the global fit on the KITTI frames, the per-region fit on the whole
+    frame of the AFFINE flagship's pair 2), host clock around a synced
+    call, the block lengths in turns for CADENCE_ROUNDS rounds; every
+    length must give the same result."""
+    import importlib
+
+    import torch
+
+    from tpuflow_torch.core.config import MODE_OUTPUT_AFFINE_BLOCKMATCHING
+    from tpuflow_torch.solvers import affine_parametric_flow
+
+    kitti = cs.f32(dev, *cs.frames_kitti())
+    pts = cs.corners(kitti[0])
+    (_, out2), state = cs.bm_sequence(
+        cs.voronoi_frames()[0], dev, mode=MODE_OUTPUT_AFFINE_BLOCKMATCHING)
+    fields, labels, n = cs.affine_crop_inputs(
+        dev, state, out2, (slice(None), slice(None)))
+    calls = {"track_points": lambda: cs.track(*kitti, pts),
+             "multiple_motion_affine": lambda: cs.affine_call(kitti, dev),
+             "affine_parametric_flow": lambda: affine_parametric_flow(
+                 *fields, labels, n, iter_max=256, normalize_steps=True)}
+    for loop, module, const, everys in CADENCES:
+        mod = importlib.import_module(f"tpuflow_torch.solvers.{module}")
+        default = getattr(mod, const)
+        ms = {k: [] for k in everys}
+        first = None
+        try:
+            for _ in range(CADENCE_ROUNDS):
+                for every in everys:
+                    setattr(mod, const, every)
+                    t0 = time.perf_counter()
+                    res = calls[loop]()
+                    torch.cuda.synchronize()
+                    ms[every].append(1e3 * (time.perf_counter() - t0))
+                    res = [r.cpu() for r in (
+                        res if isinstance(res, tuple) else (res,))]
+                    if first is None:
+                        first = res
+                    elif not all(torch.equal(a, b)
+                                 for a, b in zip(first, res)):
+                        raise AssertionError(f"{loop}: {const} = {every} "
+                                             "changes the result")
+        finally:
+            setattr(mod, const, default)
+        cs.log("cadence", loop=loop, constant=const, default=default,
+               **({"regions": n, "shape": list(labels.shape)}
+                  if loop == "affine_parametric_flow" else {}),
+               **{f"ms_every_{k}": v for k, v in ms.items()})
+
+
+SPECIAL = {"fb_profiled": fb_profiled, "blur_ab": blur_ab,
+           "lk_affine": lk_affine, "sync_cadence": sync_cadence}
 
 
 def main() -> None:

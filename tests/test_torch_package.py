@@ -73,3 +73,16 @@ def test_from_tpuflow_rejects_unknown_fields():
         from_tpuflow(Wider())
     with pytest.raises(TypeError):
         from_tpuflow(JParam)
+
+
+def test_solvers_export_what_tpuflow_exports():
+    """Every public function of ``tpuflow.solvers`` has its namesake in
+    ``tpuflow_torch.solvers``."""
+    import tpuflow.solvers as jsolvers
+    import tpuflow_torch.solvers as tsolvers
+
+    names = [n for n in dir(jsolvers) if not n.startswith("_")
+             and callable(getattr(jsolvers, n))]
+    assert len(names) >= 24
+    assert [n for n in names if not callable(getattr(tsolvers, n, None))] \
+        == []

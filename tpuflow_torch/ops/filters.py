@@ -12,9 +12,10 @@ about three decimal digits. Taps are array-likes converted on the host.
   correlation of :mod:`tpuflow_torch.kernels.sepconv`: on a CUDA tensor
   the hand-written kernel ``csrc/sepconv.cu`` (counterpart of
   ``tpuflow/kernels/sepconv.py``), on a CPU tensor its plain version.
-  Its callers are ``gaussian_filter`` (odd sizes) and Farneback: the
-  pyramid blur, the box and Gaussian aggregation of M, and the separable
-  moments of ``poly_expansion(use_kernel=False)``.
+  Its callers are ``gaussian_filter`` and ``box_filter`` (odd sizes),
+  Lucas-Kanade's gradients and box sums, and Farneback: the pyramid blur,
+  the box and Gaussian aggregation of M, and the separable moments of
+  ``poly_expansion(use_kernel=False)``.
 - ``gaussian_kernel``/``gaussian_filter`` are the reference's
   ``Gaussian`` (ImgLibrary.cpp:124-244); ``filterer`` its ``Filterer``.
 """
@@ -90,7 +91,17 @@ def sep_conv2d(img: torch.Tensor, kx, ky, border: str = bd.ZERO) -> torch.Tensor
 
 
 def box_filter(img: torch.Tensor, size: int, border: str = bd.ZERO) -> torch.Tensor:
-    """size x size normalized box average (HS demo: size=5, BORDER_CONSTANT)."""
+    """size x size normalized box average (HS demo: size=5, BORDER_CONSTANT).
+
+    Odd sizes run through :func:`sep_conv2d` with ``size`` taps of 1/size
+    a side (tpuflow takes the 2-D box of 1/size^2 taps: the two differ by
+    rounding only); even sizes anchor at ``size // 2`` and keep
+    :func:`conv2d`, since :func:`sep_conv2d` pads ``size // 2`` on both
+    sides.
+    """
+    if size % 2 == 1:
+        taps = np.full(size, 1.0 / size)
+        return sep_conv2d(img, taps, taps, border=border)
     return conv2d(img, np.full((size, size), 1.0 / (size * size)),
                   border=border, flip=False)
 

@@ -1,5 +1,4 @@
-"""Dense streaming flow (port of the Farneback part of
-:mod:`tpuflow.pipeline.streaming`).
+"""Frame streams (port of :mod:`tpuflow.pipeline.streaming`).
 
 - :func:`dense_flow_stream` — VideoDenseOF (``DenseFlow.cpp:12-59``): per
   frame, grayscale, resize to the working resolution (640x480 in the
@@ -9,11 +8,20 @@
   (OPTFLOW_USE_INITIAL_FLOW).
 - :func:`dense_flow_stream_batched` — the same per-pair math over a
   (T, H, W) clip, returning (T-1, H, W) stacks.
+- :func:`bm_flow_stream` — the flagship over a frame iterable, each
+  pair's output yielded when the next frame has been dispatched.
+- :func:`feature_tracking_stream` — VideoFeaturesOF
+  (``FeaturesOpticalFlow.cpp:44-130``) and the LucasKanadeOF pair demo:
+  goodFeaturesToTrack seeding (maxCount 500, quality 0.01, minDist 10),
+  pyramidal LK tracking, accept rule ``status && |dx|+|dy| > 2``,
+  re-seed when <= 10 tracks survive.
 - :class:`SyntheticSource` — a moving smoothed-noise texture.
 
-Both stream functions take numpy frames, as tpuflow's do, and an explicit
-``device`` to run on: the port never picks one. Frames go there as
-float32, as in tpuflow's streams.
+The streams take numpy frames, as tpuflow's do, and run on ``device``:
+the card unless the caller passes ``device="cpu"``. Frames go there as
+float32, the dtype the kernels take, as in tpuflow's dense streams; the
+tracked points stay float64 numpy, as tpuflow yields them. State objects
+are explicit dataclasses (checkpoint and resume).
 """
 
 from __future__ import annotations
@@ -26,7 +34,11 @@ import torch
 
 from tpuflow_torch.core.color import rgb_to_gray
 from tpuflow_torch.core.resample import resize_zero_order_hold
+from tpuflow_torch.solvers.bm_flow import optical_flow_block_matching_async
 from tpuflow_torch.solvers.farneback import calc_optical_flow_farneback
+from tpuflow_torch.solvers.lucas_kanade import (accept_tracked_point,
+                                                good_features_to_track,
+                                                track_points)
 from tpuflow_torch.utils.telemetry import get_telemetry
 
 
@@ -55,6 +67,13 @@ class SyntheticSource:
             yield ndshift(self.base, (-oy, -ox), order=1)[: self.h, : self.w]
 
 
+def _gray_on(frame, device) -> torch.Tensor:
+    """A numpy frame as a float32 gray image on ``device``."""
+    gray = torch.as_tensor(np.asarray(frame), dtype=torch.float32,
+                           device=device)
+    return rgb_to_gray(gray) if gray.dim() == 3 else gray
+
+
 @dataclass
 class DenseStreamState:
     prev_gray: np.ndarray | None = None
@@ -73,7 +92,7 @@ def dense_flow_stream(
     warm_start_flow: bool = False,
     state: DenseStreamState | None = None,
     *,
-    device: torch.device | str,
+    device: torch.device | str = "cuda",
 ):
     """Yields (gray_frame, u, v) as numpy arrays per frame after the first
     (DenseFlow.cpp's loop; parameters from line 37), computed on
@@ -83,13 +102,9 @@ def dense_flow_stream(
     tel = get_telemetry()
     prev = None
     if state.prev_gray is not None:
-        prev = torch.as_tensor(state.prev_gray, dtype=torch.float32,
-                               device=device)
+        prev = _gray_on(state.prev_gray, device)
     for i, frame in enumerate(frames):
-        gray = torch.as_tensor(np.asarray(frame), dtype=torch.float32,
-                               device=device)
-        if gray.dim() == 3:
-            gray = rgb_to_gray(gray)
+        gray = _gray_on(frame, device)
         if working_size is not None:
             gray = resize_zero_order_hold(gray, working_size)
         gray_np = gray.cpu().numpy()
@@ -122,7 +137,7 @@ def dense_flow_stream_batched(
     poly_n: int = 8,
     poly_sigma: float = 1.2,
     *,
-    device: torch.device | str,
+    device: torch.device | str = "cuda",
 ):
     """:func:`dense_flow_stream`'s per-pair math (flags=0, zero initial
     flow) over a (T, H, W) gray clip on ``device``; returns the (u, v)
@@ -138,3 +153,119 @@ def dense_flow_stream_batched(
         us.append(u)
         vs.append(v)
     return torch.stack(us), torch.stack(vs)
+
+
+def bm_flow_stream(
+    frames: Iterable[np.ndarray],
+    max_int: float = 255.0,
+    *,
+    device: torch.device | str = "cuda",
+    **driver_kwargs,
+):
+    """The flagship over a frame iterable, dispatch-ahead: each pair's
+    work is issued before the previous pair's output is fetched
+    (:func:`tpuflow_torch.solvers.bm_flow.optical_flow_block_matching_async`),
+    so pair (f0, f1)'s :class:`BMFlowOutput` is yielded when frame f2 has
+    been dispatched, and the last pair's when the iterable ends. From the
+    second pair on the estimate is bidirectional for the middle frame
+    (Scratch_MeaningfulMotion.cpp:544-552). ``driver_kwargs`` pass through
+    to the driver. tpuflow's ``prewarm`` (compiling region-count buckets
+    ahead) is a TPU workaround; this stream has no such argument."""
+    tel = get_telemetry()
+    state = pending = prev = None
+    pending_frame = -1
+    for i, frame in enumerate(frames):
+        frame = np.asarray(frame)
+        if prev is not None:
+            finalize, state = optical_flow_block_matching_async(
+                prev, frame, max_int, state=state, device=device,
+                **driver_kwargs)
+            if pending is not None:
+                out = pending()
+                tel.event("stream.bm_flow", frame=pending_frame,
+                          bidirectional=bool(out.bidirectional))
+                yield out
+            pending, pending_frame = finalize, i
+        prev = frame
+    if pending is not None:
+        out = pending()
+        tel.event("stream.bm_flow", frame=pending_frame,
+                  bidirectional=bool(out.bidirectional))
+        yield out
+
+
+@dataclass
+class TrackingState:
+    points: np.ndarray | None = None       # (N, 2) active tracks
+    initial: np.ndarray | None = None      # seed positions of the tracks
+    prev_gray: np.ndarray | None = None
+
+    @classmethod
+    def from_tpuflow(cls, state) -> "TrackingState":
+        """Carry a tpuflow ``TrackingState`` across, by field name, as
+        host arrays."""
+        def copy(a):
+            return None if a is None else np.array(a)
+
+        return cls(points=copy(state.points), initial=copy(state.initial),
+                   prev_gray=copy(state.prev_gray))
+
+
+def feature_tracking_stream(
+    frames: Iterable[np.ndarray],
+    max_count: int = 500,
+    quality_level: float = 0.01,
+    min_distance: float = 10.0,
+    min_track_count: int = 10,
+    min_motion: float = 2.0,
+    win: int = 21,
+    max_level: int = 3,
+    state: TrackingState | None = None,
+    *,
+    device: torch.device | str = "cuda",
+):
+    """Yields (gray, points, prev_points, status) as numpy arrays per
+    tracked frame (VideoFeaturesOF tracking(), FeaturesOpticalFlow.cpp:
+    85-130): seed when at most ``min_track_count`` tracks survive, track
+    from the previous frame, keep the accepted tracks (cut to
+    ``max_count`` after a re-seed). The corners and the tracking run on
+    ``device``."""
+    if state is None:
+        state = TrackingState()
+    tel = get_telemetry()
+    prev = None
+    if state.prev_gray is not None:
+        prev = _gray_on(state.prev_gray, device)
+    for i, frame in enumerate(frames):
+        gray = _gray_on(frame, device)
+        gray_np = gray.cpu().numpy()
+
+        n_active = 0 if state.points is None else len(state.points)
+        if n_active <= min_track_count:
+            # addNewPoints (LucasKanadeOF.cpp:104-109)
+            seeds = good_features_to_track(gray, max_count, quality_level,
+                                           min_distance)
+            if state.points is None or n_active == 0:
+                state.points = seeds
+                state.initial = seeds.copy()
+            elif len(seeds):
+                state.points = np.concatenate([state.points, seeds])[:max_count]
+                state.initial = np.concatenate(
+                    [state.initial, seeds])[:max_count]
+            tel.event("stream.reseed", frame=i, count=len(state.points))
+
+        if prev is not None and state.points is not None \
+                and len(state.points):
+            new_pts, status = track_points(prev, gray, state.points, win=win,
+                                           max_level=max_level)
+            new_pts = new_pts.cpu().numpy().astype(np.float64)
+            accept = accept_tracked_point(state.points, new_pts,
+                                          status.cpu(), min_motion).numpy()
+            prev_pts = state.points
+            state.points = new_pts[accept]
+            state.initial = state.initial[accept]
+            tel.event("stream.track", frame=i, kept=int(accept.sum()),
+                      total=len(new_pts))
+            yield gray_np, state.points, prev_pts[accept], accept
+        state.prev_gray = gray_np
+        prev = gray

@@ -12,14 +12,17 @@ Port of :mod:`tpuflow.solvers.bm_flow` (``OpticalFlow_BlockMatching.cpp:
    (:mod:`tpuflow_torch.blockmatching`; lines 198-219);
 5. the region-gated robust gradient refinement (lines 367-590), its sweeps
    through :func:`tpuflow_torch.kernels.irls_stencil.irls_gated_sweeps`;
+   or, in mode AFFINE, the per-region 6-parameter fit
+   :func:`affine_parametric_flow` (Affine_BlockMatching.cpp:11-116);
 6. compose BM vector + refinement into (u, v, t), t in {-1, +1}
    (Vector_ST, lines 306-361).
 
-**Host syncs:** the refinement reads its energy back with ``.item()`` at
-each check, at tpuflow's cadence (after sweeps 1, 65, 129, ...: 32 per
-2048-sweep refine); the segmentation's labeling runs on the host. Not
-ported yet (ROADMAP Queue 1): mode AFFINE (``affine_parametric_flow``),
-``mesh``, and the fast/turbo profiles' evaluators.
+**Host syncs:** the gradient refinement reads its energy back with
+``.item()`` at each check, at tpuflow's cadence (after sweeps 1, 65,
+129, ...: 32 per 2048-sweep refine); the affine fit reads its all-done
+flag once every :data:`AFFINE_CHECK_EVERY` iterations; the segmentation's
+labeling runs on the host. Not ported yet (ROADMAP Queue 1): ``mesh`` and
+the fast/turbo profiles' evaluators.
 """
 
 from __future__ import annotations
@@ -74,11 +77,15 @@ PROFILES = {
 }
 SIGMA_D_BM = 0.2 / math.sqrt(2.0)   # OpticalFlow_BlockMatching.cpp:47
 SIGMA_S_BM = 0.03 / math.sqrt(2.0)  # OpticalFlow_BlockMatching.cpp:48
+SIGMA_AFFINE_BM = 0.2 / math.sqrt(2.0)  # Affine_BlockMatching.cpp:17
 HISTORY_MAX = 4
 #: Sweeps between energy checks (the reference's E(n) cadence).
 CHECK_EVERY = 64
 #: Sweeps per launch of the gated kernel.
 DEFAULT_FUSE = 16
+#: Iterations of the per-region affine fit between two reads of its
+#: all-regions-done flag (the fit's only host syncs).
+AFFINE_CHECK_EVERY = 16
 
 
 # ---------------------------------------------------------------------------
@@ -517,6 +524,116 @@ def gradient_method_flow_bidirectional(
 
 
 # ---------------------------------------------------------------------------
+# Per-region affine parametric motion (AffineParametric)
+
+
+def _irls_affine_regions(gx, gy, it, labels, n_regions: int, sigma: float,
+                         iter_max: int, error_min_threshold: float,
+                         normalize_steps: bool = False, a0=None):
+    """All regions' 6-parameter IRLS at once (IRLS_AffineParametric_region,
+    Affine_BlockMatching.cpp:84-116; omega = 1): ``iter_max`` iterations,
+    a region frozen once its energy falls below the threshold. Returns
+    (a (n_regions, 6), u, v).
+
+    Every per-region sum runs through the matcher's deterministic plan
+    (pixels sorted by label once, then contiguous range sums in
+    :data:`matcher.ACC`, cast back to the fields' dtype), so the stop
+    tests and the parameters do not depend on a run's summation order;
+    the six basis fields are permuted once, psi and rho every iteration.
+    ``labels``: the (H, W) host label map of ``n_regions`` regions."""
+    h, w = gx.shape
+    dt, dev = gx.dtype, gx.device
+    labels = np.asarray(labels)
+    perm, bounds = matcher.region_reduction_plan(labels, n_regions)
+    perm = torch.from_numpy(perm).to(dev)
+    bounds = torch.from_numpy(bounds).to(dev)
+    lab = torch.from_numpy(labels.astype(np.int64)).to(dev)
+    x = torch.arange(w, dtype=dt, device=dev)[None, :].expand(h, w)
+    y = torch.arange(h, dtype=dt, device=dev)[:, None].expand(h, w)
+    basis = torch.stack([gx, gx * x, gx * y, gy, gy * x, gy * y],
+                        dim=-1).reshape(-1, 6)
+    basis_sorted = basis[perm]
+
+    def seg_sum(f_sorted):  # (N, C) in label order -> (n_regions, C)
+        return matcher._contiguous_range_sums(f_sorted, bounds).to(dt)
+
+    def sorted_column(f):  # (H, W) -> (N, 1) in label order
+        return f.reshape(-1)[perm][:, None]
+
+    # sup_i per region: 2 * max_site (basis_i^2) / sigma^2
+    # (sup_Error_aa_region); the max is order-free.
+    seg_max = torch.full((n_regions, 6), -math.inf, dtype=dt,
+                         device=dev).scatter_reduce(
+        0, lab.reshape(-1, 1).expand(-1, 6), basis * basis, "amax")
+    sup = true_div(2.0 * seg_max, sigma**2)
+    tiny = sup.abs() < 1.0e-10
+    step = torch.where(tiny, torch.where(sup >= 0, 1.0e10, -1.0e10).to(dt),
+                       1.0 / torch.where(tiny, 1.0, sup))
+    if normalize_steps:
+        # tpuflow's stabilized step (not in the reference): dE is a sum
+        # over the region while sup is a per-site max, so the reference's
+        # omega = 1 step overshoots on large regions; divide by the size.
+        counts = (bounds[1:] - bounds[:-1]).to(dt)
+        step = step / torch.clamp_min(counts, 1.0)[:, None]
+
+    def flow_of(a):
+        a_pix = a[lab]  # (H, W, 6)
+        u = a_pix[..., 0] + a_pix[..., 1] * x + a_pix[..., 2] * y
+        v = a_pix[..., 3] + a_pix[..., 4] * x + a_pix[..., 5] * y
+        return u, v
+
+    a = (torch.zeros((n_regions, 6), dtype=dt, device=dev) if a0 is None
+         else torch.as_tensor(a0, dtype=dt, device=dev))
+    done = torch.zeros(n_regions, dtype=torch.bool, device=dev)
+    u, v = flow_of(a)
+    for k in range(iter_max):
+        if k and k % AFFINE_CHECK_EVERY == 0 and bool(done.all()):  # sync
+            break
+        psi = geman_mcclure_psi(gx * u + gy * v + it, sigma)
+        dE = seg_sum(basis_sorted * sorted_column(psi))  # (n_regions, 6)
+        a = torch.where(done[:, None], a, a - step * dE)
+        u, v = flow_of(a)
+        E = seg_sum(sorted_column(
+            geman_mcclure_rho(gx * u + gy * v + it, sigma)))[:, 0]
+        done = done | (E < error_min_threshold)
+    return a, u, v
+
+
+def affine_parametric_flow(
+    reference_lab: torch.Tensor,
+    interest_lab: torch.Tensor,
+    mv_u: torch.Tensor,
+    mv_v: torch.Tensor,
+    labels,
+    n_regions: int,
+    sigma: float = SIGMA_AFFINE_BM,
+    iter_max: int = 256,
+    error_min_threshold: float = 1.0e-6,
+    normalize_steps: bool = False,
+    a0=None,
+):
+    """AffineParametric (Affine_BlockMatching.cpp:11-77): per-region
+    6-parameter robust fit of the residual motion under the BM warp
+    (mv_u, mv_v), on the frames' device. ``labels``: the host (H, W) label
+    map. Returns (a (n_regions, 6), u, v).
+
+    ``normalize_steps=True`` selects tpuflow's stabilized step (the mean
+    gradient instead of the reference's summed gradient, which diverges
+    on mean-shift-sized regions); False reproduces the reference. The
+    flagship defaults to the stabilized step. tpuflow pads the region
+    count to a compile bucket and slices the result back; the port works
+    with the true count.
+    """
+    interest_l = interest_lab[..., 0] * LAB_SCALE
+    gx, gy = gradient_method_grad(interest_l)
+    it = gradient_method_dt(reference_lab[..., 0] * LAB_SCALE, interest_l,
+                            mv_u, mv_v)
+    return _irls_affine_regions(gx, gy, it, labels, int(n_regions),
+                                float(sigma), int(iter_max),
+                                error_min_threshold, normalize_steps, a0)
+
+
+# ---------------------------------------------------------------------------
 # Vector_ST composition (OpticalFlow_BlockMatching.cpp:306-361): row
 # gathers of the per-region (u, v) and cost, on the device. The costs stay
 # in the matcher's float64, so t compares what the search compared.
@@ -633,6 +750,7 @@ def optical_flow_block_matching_async(
     mesh=None,
     bm_method: str = "matmul",
     refine_warp: bool = False,
+    affine_normalize_steps: bool = True,
     refine_sup_mode: str = "reference",
     refine_plateau_rtol: float = 0.0,
     seg_scale: int = 1,
@@ -658,18 +776,18 @@ def optical_flow_block_matching_async(
     see :func:`irls_gradient_method`; ``refine_warp=True`` feeds the
     refinement the real BM field instead of the reference's zeros;
     ``bm_method``: ``"matmul"`` or ``"gather"``; ``blocks``, when a list,
-    receives the refine's launch count. Mode AFFINE, ``mesh`` and the
-    fast/turbo profiles raise ``NotImplementedError`` (ROADMAP Queue 1).
+    receives the gated refine's launch count (0 in mode AFFINE). ``mode``
+    ``MODE_OUTPUT_AFFINE_BLOCKMATCHING`` refines each direction with
+    :func:`affine_parametric_flow` under the real BM field (at most 256
+    iterations; ``affine_normalize_steps`` picks its step) instead of the
+    gated gradient method. ``mesh`` and the fast/turbo profiles raise
+    ``NotImplementedError`` (ROADMAP Queue 1).
 
     Returns ``(finalize, state)``; ``finalize()`` fetches the composed
     fields as a :class:`BMFlowOutput`. Flow semantics: inverse flow,
     vectors point from current-frame pixels to the reference frame, with
     t = -1 (previous) or +1 (next).
     """
-    if mode == MODE_OUTPUT_AFFINE_BLOCKMATCHING:
-        raise NotImplementedError(
-            "mode MODE_OUTPUT_AFFINE_BLOCKMATCHING (affine_parametric_flow) "
-            "is not ported to tpuflow_torch yet (ROADMAP.md Queue 1)")
     if mesh is not None:
         raise NotImplementedError(
             "mesh: the multi-device flagship is not ported to tpuflow_torch "
@@ -738,7 +856,23 @@ def optical_flow_block_matching_async(
     def mv_of(bm_uv):
         return bm_uv[labels_long]
 
-    if bidirectional:
+    if mode == MODE_OUTPUT_AFFINE_BLOCKMATCHING:
+        # AffineParametric receives the real per-pixel BM field: the
+        # reference zeroes MV only in the gradient branch
+        # (OpticalFlow_BlockMatching.cpp:278-304). One fit a direction.
+        refined = []
+        for ref, bm in zip((ref_prev, ref_next) if bidirectional
+                           else (ref_prev,), bm_dev):
+            mv = mv_of(bm[0])
+            _, u, v = affine_parametric_flow(
+                ref, interest_lab, mv[..., 0], mv[..., 1], seg.labels,
+                seg.n_regions, iter_max=min(iter_max, 256),
+                error_min_threshold=param.error_min_threshold,
+                normalize_steps=affine_normalize_steps)
+            refined.append((u, v))
+        if blocks is not None:
+            blocks.append(0)
+    elif bidirectional:
         refined = gradient_method_flow_bidirectional(
             [ref_prev, ref_next], interest_lab, labels_t,
             mvs=([mv_of(bm_dev[0][0]), mv_of(bm_dev[1][0])]
@@ -796,6 +930,7 @@ def optical_flow_block_matching(
     mesh=None,
     bm_method: str = "matmul",
     refine_warp: bool = False,
+    affine_normalize_steps: bool = True,
     refine_sup_mode: str = "reference",
     refine_plateau_rtol: float = 0.0,
     seg_scale: int = 1,
@@ -810,7 +945,9 @@ def optical_flow_block_matching(
         iter_max=iter_max, state=state, search_range=search_range,
         kernel_spatial=kernel_spatial, kernel_intensity=kernel_intensity,
         subpixel_scale=subpixel_scale, mesh=mesh, bm_method=bm_method,
-        refine_warp=refine_warp, refine_sup_mode=refine_sup_mode,
+        refine_warp=refine_warp,
+        affine_normalize_steps=affine_normalize_steps,
+        refine_sup_mode=refine_sup_mode,
         refine_plateau_rtol=refine_plateau_rtol, seg_scale=seg_scale,
         profile=profile, device=device, blocks=blocks)
     return finalize(), state
