@@ -69,7 +69,21 @@ Phases, each printing one line of its own numbers:
    1080x1920 (and the tile's 2x2 cut against ``hs_sweeps``),
    ``irls_sweeps`` and ``irls_tile_sweeps`` at fuse 40 at 376x1240, the
    gated IRLS at fuse 40 with two directions; each bitwise its plain
-   version, with its launch count.
+   version, with its launch count. The sharded flagship's two tile
+   entries (``phase_kernels_entries``): the gated tile entry on the four
+   one tile of a one-rank mesh (the whole frame halo'd by the fuse, at
+   (-fuse, -fuse); the shape phase dist (a) launches it at) and on the
+   four tiles of a 2x2 cut of 376x1240 (GATED_SWEEPS sweeps, fuse
+   DIST_GATED_FUSE, two directions, real label halos), bitwise its plain
+   version on both and, stitched, the whole-frame gated kernel; the
+   mean-shift tile entry at E = 40 (halos with the sentinel outside the
+   frame) on the one-rank tile at MS_ITERS iterations and on the same
+   cut at MS_TILE_ITERS, bitwise its plain version on both and, stitched
+   at MS_ITERS, the whole-frame filter (timed); and the
+   filter's drift and trajectory outputs at 376x1240 (MS_EXTRA_ITERS
+   iterations), bitwise their plain
+   version, pos and col bitwise the launch without them. Each with ms,
+   bound, blocks per SM, registers, spills and launches.
 4. main    — each main path runs once through the public entry points,
    with every launch counter set to 0 just before it and read just after;
    each counter must show its kernel ran exactly as often as that path
@@ -85,7 +99,10 @@ Phases, each printing one line of its own numbers:
    defaults (376x1240, search 61, mean-shift (20, 16/255), subpixel 2,
    2048 sweeps) over three frames in one ``BMFlowState``: pair 1 cold and
    unidirectional (two filter launches), pair 2 bidirectional (one),
-   each with the gated kernel's launches as its refine counted them; the
+   each with the gated kernel's launches as its refine counted them, and
+   the same two pairs with ``profile="fast"`` and ``profile="turbo"``
+   (BM_PROFILES; the coarse search, the analytic sup and the plateau
+   stop; turbo segments the stride-2 frame); the
    resident HS pair's entry points at 1080x1920 (one launch each). The
    frames are bench.py's ``_frames_1080p``, ``_frames_kitti`` and
    ``_multioctave_frames``, and for the flagship a seeded pan over ~1,800
@@ -101,7 +118,14 @@ Phases, each printing one line of its own numbers:
    the known pan, the compensation PSNR against the unmoved frame and ms
    per pair; its CPU check is the same three-frame run on a 96x160 crop
    (search 15, 256 sweeps): equal labels, region counts, BM winners and
-   time directions, and u, v within PATH_TOL.
+   time directions, and u, v within PATH_TOL. The fast and turbo
+   profiles report the same EPE, PSNR and ms per pair beside the
+   default's, and take the same crop check. Each search evaluator
+   (matcher.METHODS) runs single and fused bidirectional on pair 2's
+   inputs at 376x1240, search 61 (ms per search, and the single search's
+   EPE against the known pan beside its share of regions whose winner
+   equals the exhaustive search's), and on BM_CROP at BM_CROP_SEARCH
+   against the float32 CPU: equal winners, costs within EVAL_COST_TOL.
 6. lk      — Lucas-Kanade, each path run once through its entry point
    with the counters zeroed just before and read just after (the launches
    join the main paths'): ``solvers.good_features_to_track(500, 0.01,
@@ -151,7 +175,19 @@ Phases, each printing one line of its own numbers:
    PATH_TOL. (b) Four gloo ranks share the card as a 2x2 mesh (tiles at
    nonzero origins, real halos staged through the host): the same calls,
    HS bitwise equal to (a), BA within PATH_TOL with equal sweeps; its
-   times check the staged exchange and are no speed figure.
+   times check the staged exchange and are no speed figure. Then the
+   flagship with ``mesh=`` (``phase_dist_flagship``): (a) one NCCL rank,
+   the three Voronoi frames at 376x1240 in the default mode, with
+   ``profile="fast"`` and in mode AFFINE (DIST_BM_MODES), each pair's
+   launches counted (the tile entries), ms per pair and a profiler frame
+   of pair 2; labels and BM winners equal the single-device runs of the
+   same calls, u, v within PATH_TOL of them in the default mode and in
+   AFFINE (the fast profile's refine stops by its plateau test at the
+   fused-block cadence, sweeps 64, 128, ..., where the single-device one
+   checks after sweeps 1, 65, ..., so its flow is only reported against
+   it); (b) four gloo ranks sharing the card as a 2x2 mesh, the default
+   mode: every rank's output equal, labels and winners equal (a)'s, u, v
+   within PATH_TOL.
 
 Before the last line it prints the total seconds and the kernels as JSON;
 the last line is ``{"ok": true, "device": {...}}``. A failed phase
@@ -208,6 +244,21 @@ BM_NOISE = (1.0, 1.0, 2.5)
 BM_CROP = (slice(100, 196), slice(400, 560))
 BM_CROP_SEARCH, BM_CROP_ITERS = 15, 256
 GATED_SWEEPS, GATED_FUSE = 256, 16
+# The flagship's other profiles (bm_flow.PROFILES), run beside the default
+# on the same frames, and the search evaluators (matcher.METHODS), each on
+# pair 2's inputs at full size and held against the float32 CPU on BM_CROP
+# (search BM_CROP_SEARCH): equal winners, costs within EVAL_COST_TOL x
+# max(1, |cost|) (float64 sums of the same float32 fields in two devices'
+# orders; the bf16 method rounds the same fields the same way on both).
+BM_PROFILES = ("fast", "turbo")
+EVAL_COST_TOL = 1e-9
+# The sharded refine's fuse (tpuflow's default), the sweeps of the gated
+# tile row on the 2x2 cut, the mean-shift tile row's iterations, and the
+# iterations of the filter's drift and trajectory outputs at 376x1240
+# (the plain version takes ~1.5 s an iteration there; by the third some
+# queries have stopped, so the trajectory's repeated tail is held too).
+DIST_GATED_FUSE = 8
+MS_TILE_ITERS, MS_EXTRA_ITERS = 1, 3
 # Lucas-Kanade with LucasKanadeOF's settings (LucasKanadeOF.cpp:50-114):
 # goodFeaturesToTrack(500, 0.01, 10) and calcOpticalFlowPyrLK (window 21,
 # 3 levels, 30 iterations) on the KITTI frames, whose next frame is the
@@ -840,6 +891,9 @@ def phase_kernels(dev) -> dict:
 
     phase_kernels_flagship(dev, out)
     phase_kernels_dist(dev, out)
+    t0 = time.perf_counter()
+    phase_kernels_entries(dev, out)
+    log("kernels", entries_seconds=time.perf_counter() - t0)
     phase_kernels_deep(dev)
     phase_kernels_wide(dev)
     return out
@@ -1025,7 +1079,7 @@ def ms_rows(dev, out, usage: bool = True) -> None:
         E = ms_filter.window(MS_R, None)
         th = ms_filter.tile_rows(E)
         what.update(tile_rows=th, **kernel_usage(
-            "ms_filter_kernel", ms_filter.blocks_per_sm(E, th)))
+            "ms_filter_kernel", ms_filter.blocks_per_sm(E, th), "ILb0E"))
 
     rows = []
     for x, iters in ((lab, 1), (crop, MS_ITERS)):
@@ -1055,7 +1109,7 @@ def ms_rows(dev, out, usage: bool = True) -> None:
         if usage:
             wide.update(tile_rows=ms_filter.tile_rows(E), **kernel_usage(
                 "ms_filter_wide_kernel",
-                ms_filter.blocks_per_sm(E, ms_filter.tile_rows(E))))
+                ms_filter.blocks_per_sm(E, ms_filter.tile_rows(E)), "ILb0E"))
         one = {}
         kernel_row(one, "mean_shift_filter", (h, w),
                    lambda x=x, R=R, iters=iters: ms_filter.mean_shift_filter(
@@ -1156,7 +1210,7 @@ def phase_kernels_flagship(dev, out) -> None:
     consts = (bm_flow.LAMBDA_D, bm_flow.LAMBDA_S, bm_flow.SIGMA_D_BM,
               bm_flow.SIGMA_S_BM)
     usage = kernel_usage("irls_gated_kernel",
-                         irls_stencil.blocks_per_sm_gated())
+                         irls_stencil.blocks_per_sm_gated(), "ILb0E")
     for shape in (BM_SHAPE, RAGGED_SHAPE):
         frames, cells, gx, gy, its, sup = flagship_refine_inputs(dev, shape)
         labels = torch.from_numpy(cells).to(dev)
@@ -1213,9 +1267,14 @@ def launched(kernel: str, fn, expected: int, **what) -> int:
 def exact(name: str, got, want) -> float:
     """max|d| of two results that must be equal to the last bit."""
     err, _ = max_err(list(zip(got, want)))
+    must_be_exact(name, err)
+    return err
+
+
+def must_be_exact(name: str, err: float) -> None:
+    """A kernel row's max|d| against its plain version must be 0."""
     if err != 0.0:
         raise AssertionError(f"{name}: max|d|={err}, expected 0")
-    return err
 
 
 def launches_of(sweeps: int, per_launch: int) -> int:
@@ -1311,11 +1370,13 @@ def cut_2x2(fields, halo):
             yield (i, k), tiles, (i * th - halo, k * tw - halo)
 
 
-def stitch_2x2(tiles: dict):
+def stitch(tiles: dict):
+    """The frame from an n x n cut's tiles, keyed (i, k)."""
     import torch
 
-    return torch.cat([torch.cat([tiles[i, 0], tiles[i, 1]], dim=-1)
-                      for i in range(2)], dim=-2)
+    n = 1 + max(i for i, _ in tiles)
+    return torch.cat([torch.cat([tiles[i, k] for k in range(n)], dim=-1)
+                      for i in range(n)], dim=-2)
 
 
 def tiles_of(fields, halo, cut):
@@ -1349,7 +1410,7 @@ def tile_chain(sweep, u, v, fixed, shape, n_iters, fuse, step, cut, pre,
         for key, uv, (row0, col0) in tiles_of((u, v), halo, cut):
             us[key], vs[key] = sweep(uv[0], uv[1], *fixed_t[halo][key],
                                      *pre, row0, col0, *shape, *post(k))
-        u, v = (stitch_2x2(us), stitch_2x2(vs)) if cut else (us[0, 0],
+        u, v = (stitch(us), stitch(vs)) if cut else (us[0, 0],
                                                             vs[0, 0])
     return u, v
 
@@ -1429,6 +1490,204 @@ def phase_kernels_dist(dev, out) -> None:
 
     resident_rows(dev, out)
     resident_checks(dev)
+
+
+def gated_tiles_run(sweep, u0, gx, gy, its, labels, sup, sweeps, fuse,
+                    n=2):
+    """``sweeps`` gated sweeps in blocks of ``fuse`` on the n x n cut, as an
+    n x n mesh runs them (dist/bm_refine.py; n = 1: one tile at (-fuse,
+    -fuse), a one-rank mesh): each block pads (u, v) with the frame's
+    zeros, cuts the tiles halo'd by ``fuse`` with real neighbour values and
+    labels, runs ``sweep`` (the tile entry or its plain version) on each,
+    two directions at once, and stitches the cores."""
+    import torch.nn.functional as F
+
+    from tpuflow_torch.solvers import bm_flow
+
+    consts = (bm_flow.LAMBDA_D, bm_flow.LAMBDA_S, bm_flow.SIGMA_D_BM,
+              bm_flow.SIGMA_S_BM)
+    h, w = gx.shape
+    th, tw = h // n, w // n
+
+    def pad(a):
+        return F.pad(a, (fuse,) * 4)
+
+    fixed = [pad(a) for a in (gx, gy, its, labels)]
+    u = v = u0
+    for _ in range(sweeps // fuse):
+        up, vp = pad(u), pad(v)
+        us, vs = {}, {}
+        for i in range(n):
+            for k in range(n):
+                win = (..., slice(i * th, i * th + th + 2 * fuse),
+                       slice(k * tw, k * tw + tw + 2 * fuse))
+                us[i, k], vs[i, k] = sweep(
+                    up[win].contiguous(), vp[win].contiguous(),
+                    *(f[win].contiguous() for f in fixed), *sup,
+                    i * th - fuse, k * tw - fuse, h, w, fuse, *consts)
+        u, v = stitch(us), stitch(vs)
+    return u, v
+
+
+def ms_tiles_run(fn, lab, iters, n=2):
+    """The mean-shift filter on the n x n cut of ``lab`` (n = 1: one tile
+    at (0, 0), a one-rank mesh), each tile halo'd by E = 2 MS_R with the
+    sentinel outside the frame (as mean_shift_filter_sharded cuts it),
+    through ``fn`` (the tile entry or its plain version); stitched (pos,
+    col)."""
+    from tpuflow_torch.kernels import ms_filter
+    from tpuflow_torch.segmentation.meanshift import _color_sentinel
+
+    h, w = lab.shape[:2]
+    th, tw = h // n, w // n
+    E = ms_filter.window(MS_R, None)
+    sentinel = _color_sentinel(lab, MS_KI).reshape(1)
+    padded = ms_filter._padded_planes(lab, E, sentinel).permute(1, 2, 0)
+    pos, col = {}, {}
+    for i in range(n):
+        for k in range(n):
+            tile = padded[i * th : i * th + th + 2 * E,
+                          k * tw : k * tw + tw + 2 * E].contiguous()
+            pos[i, k], col[i, k] = fn(tile, i * th, k * tw, E, MS_R, MS_KI,
+                                      iters)
+    return tuple(stitch({key: t[key].permute(2, 0, 1) for key in t})
+                 .permute(1, 2, 0) for t in (pos, col))
+
+
+def phase_kernels_entries(dev, out) -> None:
+    """The two Hopper entry points of the sharded flagship, and the
+    mean-shift filter's drift and trajectory outputs, each bitwise its
+    plain version (see the module docstring, phase 3). Each entry's first
+    row (the kernels line's) is the one tile of a one-rank mesh, the
+    shape phase dist (a) launches it at; the 2x2 cut's rows add tiles at
+    nonzero origins and are held, stitched, against the whole-frame
+    kernel."""
+    import torch
+
+    from tpuflow_torch.kernels import irls_stencil, ms_filter
+    from tpuflow_torch.solvers import bm_flow
+
+    # The gated tile entry on the flagship's refine inputs: one tile of
+    # the whole frame, then the 2x2 cut.
+    frames, cells, gx, gy, its, sup = flagship_refine_inputs(dev, BM_SHAPE)
+    labels = torch.from_numpy(cells).to(dev)
+    u0 = torch.zeros_like(its)
+    fuse = DIST_GATED_FUSE
+    args = (u0, gx, gy, its, labels, sup, GATED_SWEEPS, fuse)
+    n_blocks = GATED_SWEEPS // fuse
+    usage = kernel_usage("irls_gated_kernel",
+                         irls_stencil.blocks_per_sm_gated(), "ILb1E")
+    errs = {}
+    for n in (1, 2):
+        errs[n] = kernel_row(
+            out, "irls_gated_tile_sweeps", BM_SHAPE,
+            lambda n=n: gated_tiles_run(irls_stencil.irls_gated_tile_sweeps,
+                                        *args, n=n),
+            lambda n=n: gated_tiles_run(
+                irls_stencil.irls_gated_tile_sweeps_plain, *args, n=n),
+            gated_bound(cells, GATED_SWEEPS, 2), plain_reps=1,
+            sweeps=GATED_SWEEPS, fuse=fuse, batch=2, cut=f"{n}x{n}",
+            **({"origin": (-fuse, -fuse)} if n == 1 else {}),
+            launches_per_call=launched(
+                "irls_gated_tile_sweeps", lambda n=n: gated_tiles_run(
+                    irls_stencil.irls_gated_tile_sweeps, *args, n=n),
+                n * n * n_blocks), **usage)
+        must_be_exact(f"irls_gated_tile_sweeps {n}x{n} vs its plain version",
+                      errs[n])
+    consts = (bm_flow.LAMBDA_D, bm_flow.LAMBDA_S, bm_flow.SIGMA_D_BM,
+              bm_flow.SIGMA_S_BM)
+    a, b = u0, u0
+    for _ in range(n_blocks):
+        a, b = irls_stencil.irls_gated_sweeps(a, b, gx, gy, its, labels,
+                                              *sup, fuse, *consts)
+    err = exact("irls_gated_tile_sweeps 2x2 cut vs irls_gated_sweeps",
+                gated_tiles_run(irls_stencil.irls_gated_tile_sweeps, *args),
+                (a, b))
+    log("kernels", kernel="irls_gated_tile_sweeps", shape=BM_SHAPE,
+        cut="2x2", sweeps=GATED_SWEEPS, fuse=fuse,
+        max_abs_err_vs_plain=errs[2], max_abs_err_vs_irls_gated=err)
+    del frames, gx, gy, its, labels, u0, a, b
+    torch.cuda.synchronize()
+
+    # The mean-shift tile entry at E = 2 MS_R: one tile of the whole frame
+    # at MS_ITERS (the one-rank mesh's), then the 2x2 cut at MS_TILE_ITERS
+    # and, stitched at MS_ITERS, against the whole-frame filter (timed).
+    lab = bm_flow._to_lab(voronoi_frames()[0][1], 255.0)[1].to(dev)
+    E = ms_filter.window(MS_R, None)
+    usage = kernel_usage("ms_filter_kernel",
+                         ms_filter.blocks_per_sm(E, ms_filter.tile_rows(E)),
+                         "ILb0E")
+    rows = []
+    for n, iters in ((1, MS_ITERS), (2, MS_TILE_ITERS)):
+        need = ms_query_iterations(lab, iters)
+        one = {}
+        err = kernel_row(
+            one, "mean_shift_filter_tile", BM_SHAPE,
+            lambda n=n, iters=iters: ms_tiles_run(
+                ms_filter.mean_shift_filter_tile, lab, iters, n),
+            lambda n=n, iters=iters: ms_tiles_run(
+                ms_filter.mean_shift_filter_tile_plain, lab, iters, n),
+            ms_bound(BM_SHAPE, MS_R, need), plain_reps=1, iters=iters, E=E,
+            cut=f"{n}x{n}", query_iterations=need,
+            launches_per_call=launched(
+                "mean_shift_filter_tile", lambda n=n, iters=iters:
+                ms_tiles_run(ms_filter.mean_shift_filter_tile, lab, iters,
+                             n), n * n), **usage)
+        must_be_exact(f"mean_shift_filter_tile {n}x{n} vs its plain "
+                      "version", err)
+        out.setdefault("mean_shift_filter_tile", one["mean_shift_filter_tile"])
+        rows.append({"shape": list(BM_SHAPE), "iters": iters,
+                     "cut": f"{n}x{n}", "query_iterations": need,
+                     **one["mean_shift_filter_tile"]})
+    need = ms_query_iterations(lab, MS_ITERS)
+    whole = ms_filter.mean_shift_filter(lab, MS_R, MS_KI, MS_ITERS)
+    row = {"iters": MS_ITERS, "cut": "2x2", "E": E,
+           "query_iterations": need,
+           "max_abs_err_vs_mean_shift_filter": exact(
+               "mean_shift_filter_tile 2x2 cut vs mean_shift_filter",
+               ms_tiles_run(ms_filter.mean_shift_filter_tile, lab, MS_ITERS),
+               whole),
+           "ms": cuda_ms(lambda: ms_tiles_run(
+               ms_filter.mean_shift_filter_tile, lab, MS_ITERS), reps=3,
+               device_only=True),
+           **ms_bound(BM_SHAPE, MS_R, need)}
+    log("kernels", kernel="mean_shift_filter_tile", shape=BM_SHAPE, **row)
+    out["mean_shift_filter_tile"]["rows"] = [*rows,
+                                             {"shape": list(BM_SHAPE), **row}]
+
+    # The filter's drift and trajectory outputs (the second instantiation
+    # of each form), bitwise their plain version, and pos, col bitwise the
+    # first instantiation's.
+    extra = kernel_usage("ms_filter_kernel",
+                         ms_filter.blocks_per_sm(E, ms_filter.tile_rows(E)),
+                         "ILb1E")
+    for x, iters in ((lab, MS_EXTRA_ITERS),):
+        one = {}
+        need = ms_query_iterations(x, iters)
+        opts = dict(with_drift=True, return_trajectory=True)
+        err = kernel_row(one, "mean_shift_filter", tuple(x.shape[:2]),
+                   lambda x=x, iters=iters: ms_filter.mean_shift_filter(
+                       x, MS_R, MS_KI, iters, **opts),
+                   lambda x=x, iters=iters: ms_filter.mean_shift_filter_plain(
+                       x, MS_R, MS_KI, iters, **opts),
+                   ms_bound(x.shape[:2], MS_R, need), plain_reps=1,
+                   iters=iters, outputs="drift,trajectory",
+                   query_iterations=need, launches_per_call=launched(
+                       "mean_shift_filter", lambda x=x, iters=iters:
+                       ms_filter.mean_shift_filter(x, MS_R, MS_KI, iters,
+                                                   **opts), 1), **extra)
+        must_be_exact(f"mean_shift_filter drift, trajectory "
+                      f"{tuple(x.shape)}", err)
+        got = ms_filter.mean_shift_filter(x, MS_R, MS_KI, iters, **opts)
+        exact("mean_shift_filter pos, col with and without the outputs",
+              got[:2], ms_filter.mean_shift_filter(x, MS_R, MS_KI, iters))
+        log("kernels", kernel="mean_shift_filter", shape=tuple(x.shape[:2]),
+            iters=iters, largest_drift=float(got[2]))
+        out.setdefault("mean_shift_filter", {}).setdefault("rows", []).append(
+            {"shape": list(x.shape[:2]), "iters": iters,
+             "outputs": "drift,trajectory", "query_iterations": need,
+             **extra, **one["mean_shift_filter"]})
+    torch.cuda.synchronize()
 
 
 def resident_rows(dev, out, usage: bool = True) -> None:
@@ -1540,7 +1799,8 @@ def phase_kernels_wide(dev) -> None:
 KERNELS = ("hs_sweeps", "irls_sweeps", "sep_conv2d_valid",
            "fb_poly_expansion", "fb_blur_solve", "irls_gated_sweeps",
            "mean_shift_filter", "hs_tile_sweeps", "irls_tile_sweeps",
-           "horn_schunck_resident", "horn_schunck_resident2")
+           "horn_schunck_resident", "horn_schunck_resident2",
+           "irls_gated_tile_sweeps", "mean_shift_filter_tile")
 
 
 def reset_counts() -> None:
@@ -1554,8 +1814,10 @@ def reset_counts() -> None:
     irls_stencil.LAUNCHES = 0
     irls_stencil.LAUNCHES_TILE = 0
     irls_stencil.LAUNCHES_GATED = 0
+    irls_stencil.LAUNCHES_GATED_TILE = 0
     sepconv.LAUNCHES = 0
     ms_filter.LAUNCHES = 0
+    ms_filter.LAUNCHES_TILE = 0
     for k in fb_kernels.LAUNCHES:
         fb_kernels.LAUNCHES[k] = 0
 
@@ -1572,7 +1834,9 @@ def read_counts() -> dict:
             "hs_tile_sweeps": hs_stencil.LAUNCHES_TILE,
             "irls_tile_sweeps": irls_stencil.LAUNCHES_TILE,
             "horn_schunck_resident": hs_stencil.LAUNCHES_RESIDENT,
-            "horn_schunck_resident2": hs_stencil.LAUNCHES_RESIDENT2}
+            "horn_schunck_resident2": hs_stencil.LAUNCHES_RESIDENT2,
+            "irls_gated_tile_sweeps": irls_stencil.LAUNCHES_GATED_TILE,
+            "mean_shift_filter_tile": ms_filter.LAUNCHES_TILE}
 
 
 def counted(path: str, fn, expected, totals: dict):
@@ -1709,9 +1973,25 @@ def phase_main(dev):
         lambda _: {"mean_shift_filter": 1,
                    "irls_gated_sweeps": bm_blocks[1]}, totals)
     log("main", bm_blocks=bm_blocks)
+    profiles = {}
+    for profile in BM_PROFILES:
+        p_blocks = []
+        p_outs, p_state = [], BMFlowState()
+        for k in (0, 1):
+            out, p_state = counted(
+                f"flagship_{profile}_pair{k + 1}",
+                lambda k=k, st=p_state, profile=profile, p_blocks=p_blocks:
+                bm_pair(bm_frames, k, st, dev, p_blocks, profile=profile),
+                lambda _, k=k, p_blocks=p_blocks: {
+                    "mean_shift_filter": 2 if k == 0 else 1,
+                    "irls_gated_sweeps": p_blocks[k]}, totals)
+            p_outs.append(out)
+        log("main", profile=profile, bm_blocks=p_blocks)
+        profiles[profile] = (p_outs, p_state)
     return (totals, (hs_frames, hs_flow, resident, hs_wide),
             (ba_frames, ba_flow, blocks),
-            fb_runs, (frames, stream), (bm_frames, (out1, out2), state))
+            fb_runs, (frames, stream),
+            (bm_frames, (out1, out2), state, profiles))
 
 
 def bm_pair(frames, k, state, device, blocks=None, **kw):
@@ -1916,48 +2196,148 @@ def check_bm_vs_cpu(name, card, cpu) -> float:
                               torch.from_numpy(cpu.v)])
 
 
-def phase_bm(dev, frames, outs, state) -> None:
+def phase_bm(dev, frames, outs, state, profiles) -> None:
     """The flagship: finite flow of the frame's shape, its quality against
-    the known pan, card vs CPU on a crop, and the card's ms per pair."""
+    the known pan, card vs CPU on a crop, and the card's ms per pair; the
+    same quality and times for BM_PROFILES; the search evaluators
+    (:func:`phase_bm_methods`)."""
     import torch
 
-    for k, out in enumerate(outs):
-        fields = (out.u, out.v, out.bm_u, out.bm_v)
-        if any(f.shape != BM_SHAPE or not np.isfinite(f).all()
-               for f in fields) or not set(np.unique(out.t)) <= {-1, 1}:
-            raise AssertionError(f"flagship pair {k + 1}: flow is not "
-                                 f"finite of shape {BM_SHAPE}")
-        log("bm", pair=k + 1, bidirectional=out.bidirectional,
-            n_regions=out.segmentation.n_regions,
-            **bm_quality(dev, frames, out, out.bidirectional))
+    runs = {"default": outs, **{p: o for p, (o, _) in profiles.items()}}
+    for profile, pair_outs in runs.items():
+        for k, out in enumerate(pair_outs):
+            fields = (out.u, out.v, out.bm_u, out.bm_v)
+            if any(f.shape != BM_SHAPE or not np.isfinite(f).all()
+                   for f in fields) or not set(np.unique(out.t)) <= {-1, 1}:
+                raise AssertionError(f"flagship {profile} pair {k + 1}: flow "
+                                     f"is not finite of shape {BM_SHAPE}")
+            log("bm", profile=profile, pair=k + 1,
+                bidirectional=out.bidirectional,
+                n_regions=out.segmentation.n_regions,
+                **bm_quality(dev, frames, out, out.bidirectional))
     log("bm", n_regions_frame3=state.segmentations[0].n_regions)
 
     crop = [f[BM_CROP] for f in frames]
-    kw = dict(search_range=BM_CROP_SEARCH, iter_max=BM_CROP_ITERS)
-    card, _ = bm_sequence(crop, dev, **kw)
-    cpu = []
-    cpu_ms = host_ms(lambda: cpu.extend(bm_sequence(crop, "cpu", **kw)[0]))
-    err = max(check_bm_vs_cpu(f"flagship crop pair {k + 1}", a, b)
-              for k, (a, b) in enumerate(zip(card, cpu)))
-    log("bm", crop=tuple(crop[0].shape[:2]), search_range=BM_CROP_SEARCH,
-        iter_max=BM_CROP_ITERS, n_regions=card[1].segmentation.n_regions,
-        max_abs_err_vs_cpu=err, chip_host_cpu_f32_ms_two_pairs=cpu_ms)
+    for profile in (None, *BM_PROFILES):
+        kw = dict(search_range=BM_CROP_SEARCH, iter_max=BM_CROP_ITERS,
+                  profile=profile)
+        card, _ = bm_sequence(crop, dev, **kw)
+        cpu = []
+        cpu_ms = host_ms(lambda: cpu.extend(bm_sequence(crop, "cpu",
+                                                        **kw)[0]))
+        name = profile or "default"
+        err = max(check_bm_vs_cpu(f"flagship {name} crop pair {k + 1}", a, b)
+                  for k, (a, b) in enumerate(zip(card, cpu)))
+        log("bm", profile=name, crop=tuple(crop[0].shape[:2]),
+            search_range=BM_CROP_SEARCH, iter_max=BM_CROP_ITERS,
+            n_regions=card[1].segmentation.n_regions,
+            labels_winners_t_equal=True, max_abs_err_vs_cpu=err,
+            chip_host_cpu_f32_ms_two_pairs=cpu_ms)
 
-    times = []
-    for _ in range(2):
-        from tpuflow_torch.solvers.bm_flow import BMFlowState
+    from tpuflow_torch.solvers.bm_flow import BMFlowState
 
-        st = BMFlowState()
-        pair_ms = []
-        for k in (0, 1):
-            t0 = time.perf_counter()
-            bm_pair(frames, k, st, dev)
-            torch.cuda.synchronize()
-            pair_ms.append(1e3 * (time.perf_counter() - t0))
-        times.append(pair_ms)
-    log("bm", shape=BM_SHAPE, card_ms_pair1_cold=[t[0] for t in times],
-        card_ms_pair2_bidirectional=[t[1] for t in times])
-    profile_pair(frames, st, dev)
+    for profile in (None, *BM_PROFILES):
+        times = []
+        for _ in range(2):
+            st = BMFlowState()
+            pair_ms = []
+            for k in (0, 1):
+                t0 = time.perf_counter()
+                bm_pair(frames, k, st, dev, profile=profile)
+                torch.cuda.synchronize()
+                pair_ms.append(1e3 * (time.perf_counter() - t0))
+            times.append(pair_ms)
+        log("bm", shape=BM_SHAPE, profile=profile or "default",
+            card_ms_pair1_cold=[t[0] for t in times],
+            card_ms_pair2_bidirectional=[t[1] for t in times])
+        if profile is None:
+            profile_pair(frames, st, dev)
+    t0 = time.perf_counter()
+    phase_bm_methods(dev, frames, state)
+    log("bm", evaluators_seconds=time.perf_counter() - t0)
+
+
+def crop_labels(labels: np.ndarray):
+    """A crop's labels renumbered 0..n-1 in order, and n."""
+    uniq, lab = np.unique(labels, return_inverse=True)
+    return lab.reshape(labels.shape).astype(np.int32), len(uniq)
+
+
+def phase_bm_methods(dev, frames, state) -> None:
+    """Each search evaluator (matcher.METHODS) through
+    ``block_matching_labels`` and the fused bidirectional search on pair
+    2's inputs (the middle frame's Lab and segmentation, its neighbours),
+    at full size with the flagship's search, ms per search; and on
+    BM_CROP at BM_CROP_SEARCH against the float32 CPU: equal winners, costs
+    within EVAL_COST_TOL."""
+    import torch
+
+    from tpuflow_torch.blockmatching import matcher
+    from tpuflow_torch.solvers import bm_flow
+
+    labs = [bm_flow._to_lab(f, 255.0)[1] for f in frames]
+    seg = state.segmentations[1]
+    sr = bm_flow.MultipleMotionParam().bm_search_range
+    full = [x.to(dev) for x in labs]
+    crop_lab, crop_n = crop_labels(seg.labels[BM_CROP])
+    crops = [x[BM_CROP].contiguous() for x in labs]
+
+    def searches(xs, labels, n, search_range, method):
+        single = matcher.block_matching_labels(
+            xs[1], xs[0], labels, n, search_range=search_range,
+            method=method)
+        pair = matcher.block_matching_bidirectional(
+            xs[1], xs[0], xs[2], labels, n, search_range=search_range,
+            method=method)
+        return [single, *pair[:2]]
+
+    # The single search's winners (middle frame toward the previous, t =
+    # -1) against the known pan, pixel-weighted, and beside the
+    # exhaustive search's: a search's own share of the flagship's BM-field
+    # EPE (the refine never moves the BM field).
+    pixels = np.bincount(seg.labels.ravel(), minlength=seg.n_regions)
+    pan_uv = np.array([BM_PAN[1], BM_PAN[0]], np.float64)
+    winners = {}
+    for method in matcher.METHODS:
+        single = []
+        ms_single = synced_ms(lambda: single.append(
+            matcher.block_matching_labels(
+                full[1], full[0], seg.labels, seg.n_regions,
+                search_range=sr, method=method)), reps=2)
+        uv = winners[method] = single[-1].region_uv.astype(np.float64)
+        quality = {
+            "epe_vs_pan": float((np.hypot(*(uv - pan_uv).T) * pixels).sum()
+                                / pixels.sum()),
+            "share_regions_as_matmul": float(
+                (uv == winners["matmul"]).all(1).mean()),
+            "share_regions_over_1px_from_matmul": float(
+                (np.abs(uv - winners["matmul"]).max(1) > 1.0).mean())}
+        ms_bidi = synced_ms(lambda: matcher.block_matching_bidirectional(
+            full[1], full[0], full[2], seg.labels, seg.n_regions,
+            search_range=sr, method=method), reps=2)
+        card = searches([x.to(dev) for x in crops], crop_lab, crop_n,
+                        BM_CROP_SEARCH, method)
+        cpu = searches(crops, crop_lab, crop_n, BM_CROP_SEARCH, method)
+        cost_err = 0.0
+        for a, b in zip(card, cpu):
+            if not np.array_equal(a.region_uv, b.region_uv):
+                raise AssertionError(
+                    f"{method} crop: winners differ at "
+                    f"{int((a.region_uv != b.region_uv).any(1).sum())} "
+                    "regions")
+            d = np.abs(a.region_cost - b.region_cost)
+            lim = EVAL_COST_TOL * np.maximum(1.0, np.abs(b.region_cost))
+            if not (d <= lim).all():
+                raise AssertionError(f"{method} crop: cost max|d| "
+                                     f"{float(d.max())}")
+            cost_err = max(cost_err, float(d.max()))
+        log("bm", method=method, shape=BM_SHAPE, search_range=sr,
+            n_regions=seg.n_regions, card_ms_search=ms_single,
+            card_ms_bidirectional=ms_bidi, **quality,
+            crop=tuple(crops[0].shape[:2]),
+            crop_search_range=BM_CROP_SEARCH, crop_regions=crop_n,
+            crop_winners_equal=True, crop_cost_max_abs_err_vs_cpu=cost_err)
+    torch.cuda.synchronize()
 
 
 def profile_pair(frames, state, dev, top: int = 8) -> None:
@@ -2508,6 +2888,93 @@ def dist_rank(mesh, full: bool):
             "results": res, "launches": totals, "ms": times}
 
 
+# The flagship on a mesh: modes of phase dist (a) (the driver's keywords)
+# and the one (b) repeats on 2x2.
+DIST_BM_MODES = {"default": {}, "fast": {"profile": "fast"},
+                 "affine": {"mode": 0x0100}}  # MODE_OUTPUT_AFFINE_...
+
+
+def bm_fields(out) -> dict:
+    """A flagship output's fields as host arrays (picklable)."""
+    return {"u": out.u, "v": out.v, "t": out.t, "bm_u": out.bm_u,
+            "bm_v": out.bm_v, "labels": out.segmentation.labels,
+            "n_regions": out.segmentation.n_regions}
+
+
+def dist_flagship_rank(mesh, modes, profiled: bool):
+    """The flagship with ``mesh=`` over the Voronoi pan, one sequence per
+    mode of ``modes``: on a card each pair runs with the launch counts
+    zeroed just before and read just after (pair 1 segments its first
+    frame on one rank, then both pairs filter the new frame tiled), and
+    a second sequence is timed; ``profiled`` adds a profiler frame of
+    pair 2 in the default mode. Every rank's labels are checked equal to
+    rank 0's. Rank 0's outputs return as host arrays."""
+    import torch
+    import torch.distributed as dist
+
+    from tpuflow_torch.solvers.bm_flow import BMFlowState
+
+    dev = mesh.device
+    frames, _ = voronoi_frames()
+    totals, res, times = {}, {}, {}
+    for mode in modes:
+        kw = dict(DIST_BM_MODES[mode], mesh=mesh)
+        blocks, outs, st = [], [], BMFlowState()
+        for k in (0, 1):
+            out, st = counted(
+                f"dist_flagship_{mode}_pair{k + 1}",
+                lambda k=k, st=st: bm_pair(frames, k, st, dev, blocks, **kw),
+                lambda _, k=k: {
+                    "mean_shift_filter": 1 if k == 0 else 0,
+                    "mean_shift_filter_tile": 1,
+                    "irls_gated_tile_sweeps": blocks[k]}, totals)
+            outs.append(bm_fields(out))
+        res[mode] = outs
+        res[f"{mode}_blocks"] = blocks
+        pair_ms, st = [], BMFlowState()
+        for k in (0, 1):
+            t0 = time.perf_counter()
+            _, st = bm_pair(frames, k, st, dev, **kw)
+            torch.cuda.synchronize()
+            pair_ms.append(1e3 * (time.perf_counter() - t0))
+        times[mode] = pair_ms
+        if profiled and mode == "default":
+            profile_frame("dist", lambda: bm_pair(frames, 1, st, dev, **kw),
+                          call="flagship_pair2")
+    mine = torch.tensor([float(np.sum(res[m][k]["labels"] * (k + 1)))
+                         + float(np.sum(res[m][k]["u"]))
+                         for m in modes for k in (0, 1)],
+                        dtype=torch.float64)
+    buf = mine.to(dev) if mesh.backend == "nccl" else mine
+    every = [torch.empty_like(buf) for _ in range(mesh.size)]
+    dist.all_gather(every, buf, group=mesh.group)
+    return {"mesh": mesh.shape, "backend": mesh.backend, "results": res,
+            "launches": totals, "ms": times,
+            "ranks_agree": all(torch.equal(e.cpu(), mine) for e in every)}
+
+
+def check_mesh_flagship(name, got, want, flows=True) -> dict:
+    """A mesh run's two pairs against a reference's: equal labels, region
+    counts, BM winners and time directions; u, v within PATH_TOL
+    (``flows``), else their max|d| only."""
+    import torch
+
+    errs = []
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g["n_regions"] != w["n_regions"] or not np.array_equal(
+                g["labels"], w["labels"]):
+            raise AssertionError(f"{name} pair {k + 1}: labels differ")
+        for f in ("bm_u", "bm_v", "t"):
+            if not np.array_equal(g[f], w[f]):
+                raise AssertionError(f"{name} pair {k + 1}: {f} differs at "
+                                     f"{int((g[f] != w[f]).sum())} pixels")
+        pairs = [(torch.from_numpy(g[f]), torch.from_numpy(w[f]))
+                 for f in ("u", "v")]
+        errs.append(check_close(f"{name} pair {k + 1}", pairs, PATH_TOL)
+                    if flows else max_err(pairs)[0])
+    return {"labels_winners_equal": True, "max_abs_err_uv": errs}
+
+
 def weak_frames_np():
     """bench.py::bench_weak_scaling_row's pair at WEAK_TILE."""
     rng = np.random.default_rng(0)
@@ -2527,10 +2994,12 @@ def check_ba(name, got, frames, mesh_shape) -> float:
                        list(zip(got["ba"], ref)), PATH_TOL)
 
 
-def phase_dist(dev, ba) -> dict:
+def phase_dist(dev, ba, single) -> dict:
     """The sharded path, (a) on one NCCL rank and (b) on a 2x2 mesh of gloo
     ranks sharing the card, against the single-device port on the card
-    and one float32 gloo CPU rank. Returns (a)'s launch counts."""
+    and one float32 gloo CPU rank; then the flagship on a mesh
+    (:func:`phase_dist_flagship`, against ``single``). Returns (a)'s launch
+    counts."""
     import torch
 
     from tpuflow_torch import solvers
@@ -2602,6 +3071,51 @@ def phase_dist(dev, ba) -> dict:
         weak_scaling=json.dumps(got_b["weak"]["runs"]),
         **{f"{k}_vs_a": v for k, v in errs.items()},
         **{f"staged_check_{k}_ms": v for k, v in b["ms"].items()})
+    launches = dict(a["launches"])
+    t0 = time.perf_counter()
+    for k, n in phase_dist_flagship(dev, single).items():
+        launches[k] = launches.get(k, 0) + n
+    log("dist", flagship_seconds=time.perf_counter() - t0)
+    return launches
+
+
+def phase_dist_flagship(dev, single) -> dict:
+    """The flagship with ``mesh=``: (a) on one NCCL rank in every mode of
+    DIST_BM_MODES against the single-device runs of the same calls
+    (``single``: mode -> the two pairs' fields): labels and BM winners
+    equal, u, v within PATH_TOL where both refines stop at the same
+    sweeps (the sharded refine checks its energy at the fused-block
+    cadence, tpuflow's); (b) four gloo ranks sharing the card as a 2x2
+    mesh, the default mode, against (a): labels and winners equal, u, v
+    within PATH_TOL. Returns (a)'s launch counts."""
+    from tpuflow_torch.dist import run_on_mesh
+
+    a = run_on_mesh(dist_flagship_rank, 1, "nccl", "cuda",
+                    args=(tuple(DIST_BM_MODES), True),
+                    timeout=DIST_TIMEOUT_S)
+    for mode in DIST_BM_MODES:
+        got = a["results"][mode]
+        same = mode != "fast"
+        log("dist", run="a", flagship=mode, mesh=a["mesh"],
+            backend=a["backend"], refine_blocks=a["results"][f"{mode}_blocks"],
+            card_ms_pair1_cold=a["ms"][mode][0],
+            card_ms_pair2_bidirectional=a["ms"][mode][1],
+            **check_mesh_flagship(f"dist (a) flagship {mode}", got,
+                                  single[mode], flows=same))
+    log("dist", run="a", flagship_launches=json.dumps(a["launches"]),
+        ranks_agree=a["ranks_agree"])
+    b = run_on_mesh(dist_flagship_rank, DIST_GLOO_RANKS, "gloo", "cuda",
+                    args=(("default",), False), timeout=DIST_TIMEOUT_S)
+    if not b["ranks_agree"]:
+        raise AssertionError("dist (b) flagship: the ranks' outputs differ")
+    log("dist", run="b", flagship="default", mesh=b["mesh"],
+        backend=b["backend"], refine_blocks=b["results"]["default_blocks"],
+        launches_rank0=json.dumps(b["launches"]), ranks_agree=True,
+        staged_check_ms_pair1=b["ms"]["default"][0],
+        staged_check_ms_pair2=b["ms"]["default"][1],
+        **check_mesh_flagship("dist (b) flagship vs (a)",
+                              b["results"]["default"],
+                              a["results"]["default"]))
     return a["launches"]
 
 
@@ -2618,7 +3132,9 @@ def main() -> None:
     phase_hs(*hs)
     phase_ba(*ba)
     phase_fb(fb_runs, stream)
+    t0 = time.perf_counter()
     phase_bm(dev, *bm)
+    log("bm", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     lk = main_lk(dev, launches)
     log("main", paths="lk", seconds=time.perf_counter() - t0)
@@ -2627,8 +3143,14 @@ def main() -> None:
     affine = main_affine(dev, launches, bm[1])
     log("main", paths="affine", seconds=time.perf_counter() - t0)
     phase_affine(dev, *affine)
-    for k, n in phase_dist(dev, ba).items():
+    single = {"default": bm[1], "fast": bm[3]["fast"][0],
+              "affine": affine[1][1]}
+    t0 = time.perf_counter()
+    for k, n in phase_dist(dev, ba, {mode: [bm_fields(o) for o in outs]
+                                     for mode, outs in single.items()}
+                           ).items():
         launches[k] = launches.get(k, 0) + n
+    log("dist", seconds=time.perf_counter() - t0)
     kernels = []
     for kname, source, replaces in (
             ("hs_sweeps", "tpuflow_torch/csrc/hs_stencil.cu",
@@ -2652,7 +3174,14 @@ def main() -> None:
             ("horn_schunck_resident2", "tpuflow_torch/csrc/hs_resident.cu",
              "tpuflow/kernels/hs_stencil.py:560"),
             ("irls_tile_sweeps", "tpuflow_torch/csrc/irls_stencil.cu",
-             "tpuflow/kernels/irls_stencil.py:353")):
+             "tpuflow/kernels/irls_stencil.py:353"),
+            # Not TPU kernels: the jnp tile bodies tpuflow's sharded
+            # flagship runs (tpuflow/dist/bm_refine.py:143 and
+            # tpuflow/segmentation/meanshift.py:577), as Hopper entries.
+            ("irls_gated_tile_sweeps", "tpuflow_torch/csrc/irls_gated.cu",
+             "tpuflow/kernels/irls_stencil.py:97"),
+            ("mean_shift_filter_tile", "tpuflow_torch/csrc/ms_filter.cu",
+             "tpuflow/segmentation/meanshift.py:577")):
         if launches.get(kname, 0) < 1:
             raise AssertionError(f"{kname} was not launched on the main path")
         kernels.append({"name": kname, "route": "cuda", "source": source,

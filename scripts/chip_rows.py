@@ -15,7 +15,9 @@ blur-solve against its plain version at the winsizes a parent's kernel
 also takes (chip_smoke.BLUR_AB), through the wrapper alone, or
 ``lk_affine``: chip_smoke.py's phases lk and affine, or
 ``sync_cadence``: the three loops that read a stop flag back once per
-block of steps, each timed at several block lengths (CADENCES).
+block of steps, each timed at several block lengths (CADENCES), or
+``flagship_pairs``: the flagship's default pairs at 376x1240, ms per
+pair over FLAGSHIP_ROUNDS rounds after a warm-up round.
 
 Without ``--repo`` it first runs chip_smoke.py's build phase, so the rows
 log blocks per SM and ptxas's registers and spills. With ``--repo`` the
@@ -134,8 +136,38 @@ def sync_cadence(cs, dev) -> None:
                **{f"ms_every_{k}": v for k, v in ms.items()})
 
 
+FLAGSHIP_ROUNDS = 4
+
+
+def flagship_pairs(cs, dev) -> None:
+    """The flagship with its defaults on chip_smoke.py's Voronoi pan:
+    pair 1 (cold, unidirectional) and pair 2 (bidirectional) from an empty
+    state, one warm-up round, then FLAGSHIP_ROUNDS rounds, host clock
+    around each synced pair (the caller's view)."""
+    import torch
+
+    from tpuflow_torch.solvers.bm_flow import BMFlowState
+
+    frames, _ = cs.voronoi_frames()
+    times = []
+    for r in range(FLAGSHIP_ROUNDS + 1):
+        state = BMFlowState()
+        pair_ms = []
+        for k in (0, 1):
+            t0 = time.perf_counter()
+            cs.bm_pair(frames, k, state, dev)
+            torch.cuda.synchronize()
+            pair_ms.append(1e3 * (time.perf_counter() - t0))
+        if r:
+            times.append(pair_ms)
+    cs.log("rows", flagship="default", shape=cs.BM_SHAPE,
+           card_ms_pair1_cold=[t[0] for t in times],
+           card_ms_pair2_bidirectional=[t[1] for t in times])
+
+
 SPECIAL = {"fb_profiled": fb_profiled, "blur_ab": blur_ab,
-           "lk_affine": lk_affine, "sync_cadence": sync_cadence}
+           "lk_affine": lk_affine, "sync_cadence": sync_cadence,
+           "flagship_pairs": flagship_pairs}
 
 
 def main() -> None:

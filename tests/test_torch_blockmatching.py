@@ -82,11 +82,14 @@ def test_unknown_and_unported_methods():
         with pytest.raises(ValueError, match="unknown block-matching"):
             tm.block_matching_labels(lab, lab, labels, 4, search_range=3,
                                      subpixel_scale=1, method=bad)
+    # Every tpuflow method is ported: each runs (here on equal textured
+    # frames, where every region's best displacement is zero).
+    tex = _t(np.random.default_rng(0).uniform(0, 100, (16, 16, 3)))
     for later in ("matmul_bf16", "matmul_coarse", "matmul_half2"):
-        assert later in jm.METHODS
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm.block_matching_labels(lab, lab, labels, 4, search_range=3,
-                                     subpixel_scale=1, method=later)
+        assert later in jm.METHODS and later in tm.METHODS
+        res = tm.block_matching_labels(tex, tex, labels, 4, search_range=3,
+                                       subpixel_scale=1, method=later)
+        np.testing.assert_array_equal(res.region_uv, np.zeros((4, 2)))
 
 
 def test_too_many_regions_refused():

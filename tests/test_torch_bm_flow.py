@@ -462,15 +462,24 @@ def test_flagship_affine_mode_recovers_rotation_zoom():
 
 
 def test_flagship_refuses_unported(three_frames):
+    """What the driver still refuses: an unknown profile or search method,
+    and a stride-``seg_scale`` segmentation on a mesh (as tpuflow). Every
+    profile names a ported method (tests/test_torch_bm_methods.py runs
+    fast and turbo)."""
     f0, f1, _ = three_frames
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tb.optical_flow_block_matching(f0, f1, mesh=object(), device="cpu")
-    for profile in ("fast", "turbo"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tb.optical_flow_block_matching(f0, f1, profile=profile,
-                                           device="cpu")
+    for profile, knobs in tb.PROFILES.items():
+        tb.matcher.validate_method(knobs.get("bm_method", "matmul"))
+        assert knobs == jb.PROFILES[profile]
     with pytest.raises(ValueError, match="profile"):
         tb.optical_flow_block_matching(f0, f1, profile="bogus", device="cpu")
+    with pytest.raises(ValueError, match="unknown block-matching"):
+        tb.optical_flow_block_matching(f0, f1, bm_method="matmul_fp16",
+                                       device="cpu")
+    from tpuflow_torch.segmentation import meanshift
+
+    with pytest.raises(ValueError, match="single-device"):
+        meanshift.segment_meanshift_async(torch.zeros((8, 8, 3)), 4,
+                                          scale=2, mesh=object())
     assert MultipleMotionParam().bm_search_range == 61
 
 

@@ -43,6 +43,7 @@ from tpuflow_torch.kernels import _build
 from tpuflow_torch.kernels._build import MAX_SMEM_BYTES
 from tpuflow_torch.solvers import bm_flow
 from tpuflow_torch.solvers.mestimators import geman_mcclure_psi as psi
+from tpuflow_torch.utils import numerics
 
 CSRC = Path(irls_stencil.__file__).resolve().parent.parent / "csrc"
 SIGMA_S = bm_flow.SIGMA_S_BM
@@ -110,7 +111,7 @@ def _edge_form_sweeps(u, v, gx, gy, it, labels, sup_x, sup_y, fuse,
     left, right, up, down = (g.bool() for g in bm_flow._region_gates(
         labels, u.dtype))
     for _ in range(fuse):
-        norm = torch.sqrt(u * u + v * v)
+        norm = numerics.sqrt(u * u + v * v)  # sqrtf: correctly rounded
         edges = {}
         for name, (dx, dy) in (("right", (1, 0)), ("down", (0, 1))):
             un, vn, m = bm_flow._coherence(u, v, norm, dx, dy)

@@ -7,7 +7,7 @@ window of integer displacements with cost ``coeff_MAD * MAD - coeff_ZNCC
 the integer winner. Out-of-frame reference reads are zeros (the
 reference's ``get_zeropad``).
 
-Two integer-search evaluators, as in tpuflow:
+The integer-search evaluators, as in tpuflow (:data:`METHODS`):
 
 - ``"matmul"`` (default): per 32-row strip, the region one-hot matrix L
   (strip pixels x regions present in the strip) reduces every candidate
@@ -15,8 +15,22 @@ Two integer-search evaluators, as in tpuflow:
   (:data:`ACC`; the fields are cast up first, so on the card it is a
   float64 GEMM, slower than tpuflow's float32 one); the shifted reference
   is one gather per chunk from a zero-padded copy;
+- ``"matmul_bf16"``: the same, with the per-candidate moment fields
+  rounded to bfloat16 first (tpuflow's ``mxu_dtype``), then summed exactly
+  as the others are;
+- ``"matmul_coarse"`` / ``"matmul_coarse3"``: the stride-2 / stride-3
+  subgrid of the candidates (:func:`coarse_candidates`), then an inclusive
+  +-1-px refinement at 1/subpixel steps around the coarse winner
+  (:func:`_local_refine`), which recovers the skipped cells;
+- ``"matmul_half"`` / ``"matmul_half2"``: the stride-2 subgrid scored on
+  anti-aliased half-resolution frames and labels (:func:`_half_res`), then
+  the same refinement at full resolution (radius 2 for ``_half2``);
 - ``"gather"``: pixels permuted into label order once, per-region sums
   by chunk sums + boundary prefixes (:func:`_contiguous_range_sums`).
+
+The coarse and half-resolution methods are not bitwise the exhaustive
+search (a distant coarse cell can out-score the true winner's
+neighbours); they are held to tpuflow's same method.
 
 The per-pixel fields are computed in the frames' dtype, as in tpuflow,
 and every per-region sum, cost and argmin in float64 (:data:`ACC`, where
@@ -27,10 +41,13 @@ subpixel candidates of a small region, so the card and the CPU would
 pick different winners. Every reduction is deterministic: no
 ``index_add_``/``scatter_add_`` (CUDA sums those with atomics in a
 changing order, which would flip an argmin at a near-tie from run to
-run). The coarse, half-resolution and
-bf16 evaluators of the fast and turbo profiles are not ported (ROADMAP
-Queue 1); nor are tpuflow's ``region_bucket``/``pad_region_bounds``,
-which dodge XLA recompiles: the port works with the true region count.
+run). The candidate list is padded with (0, 0) fillers to a multiple of
+the chunk (:func:`padded_candidates`, tpuflow's ``_padded_candidates``),
+so every chunk's product has the same shape and contents whether one
+device scores the whole list or a mesh rank scores its slice
+(:mod:`tpuflow_torch.dist.bm`): the two agree bitwise. tpuflow's
+``region_bucket``/``pad_region_bounds``, which dodge XLA recompiles, are
+not ported: the port works with the true region count.
 """
 
 from __future__ import annotations
@@ -42,11 +59,9 @@ import torch
 
 from tpuflow_torch.core.color import LAB_SCALE as _LAB_SCALE
 
-#: The integer-search evaluators the port implements.
-METHODS = ("matmul", "gather")
-#: tpuflow's other evaluators, not ported yet.
-_UNPORTED = ("matmul_bf16", "matmul_coarse", "matmul_coarse3",
-             "matmul_half", "matmul_half2")
+#: The integer-search evaluators (tpuflow's, in its order).
+METHODS = ("matmul", "matmul_bf16", "matmul_coarse", "matmul_coarse3",
+           "matmul_half", "matmul_half2", "gather")
 
 #: The dtype of every per-region sum and cost.
 ACC = torch.float64
@@ -62,10 +77,6 @@ MAX_REGIONS = 16384
 
 
 def validate_method(method: str) -> None:
-    if method in _UNPORTED:
-        raise NotImplementedError(
-            f"block-matching method {method!r} is not ported to "
-            "tpuflow_torch yet (ROADMAP.md Queue 1)")
     if method not in METHODS:
         raise ValueError(
             f"unknown block-matching method {method!r}; expected one of "
@@ -176,6 +187,56 @@ def search_candidates(search_range: int) -> np.ndarray:
                     indexing="ij"), -1).reshape(-1, 2)
 
 
+def padded_candidates(cand: np.ndarray, chunk: int,
+                      n_shards: int = 1) -> np.ndarray:
+    """``cand`` padded with (0, 0) fillers so each of ``n_shards`` slices
+    holds a multiple of ``chunk`` (tpuflow's ``_padded_candidates``); the
+    fillers' costs are dropped after scoring."""
+    per = -(-len(cand) // n_shards)
+    per = -(-per // chunk) * chunk
+    pad = per * n_shards - len(cand)
+    return np.concatenate([cand, np.zeros((pad, 2), cand.dtype)])
+
+
+def coarse_candidates(search_range: int, stride: int = 2) -> np.ndarray:
+    """The stride-``stride`` subgrid of :func:`search_candidates` (dy and
+    dx both multiples of the stride, (0, 0) included), in the same order."""
+    cand = search_candidates(search_range)
+    keep = (cand[:, 0] % stride == 0) & (cand[:, 1] % stride == 0)
+    return cand[keep]
+
+
+def coarse_stride(method: str) -> int:
+    return 3 if method == "matmul_coarse3" else 2
+
+
+def is_coarse(method: str) -> bool:
+    """Methods that score a candidate subgrid and finish with
+    :func:`_local_refine`."""
+    return method.startswith(("matmul_coarse", "matmul_half"))
+
+
+def method_candidates(method: str, search_range: int) -> np.ndarray:
+    """The candidates ``method`` scores, before padding."""
+    if is_coarse(method):
+        return coarse_candidates(search_range, coarse_stride(method))
+    return search_candidates(search_range)
+
+
+def _binomial3(img: torch.Tensor) -> torch.Tensor:
+    """Separable (1/4, 1/2, 1/4) low-pass of an (H, W, C) frame with
+    edge-clamped borders, rows first (tpuflow's shift-adds)."""
+    p = torch.cat([img[:1], img, img[-1:]], dim=0)
+    p = torch.cat([p[:, :1], p, p[:, -1:]], dim=1)
+    r = 0.25 * p[:-2] + 0.5 * p[1:-1] + 0.25 * p[2:]
+    return 0.25 * r[:, :-2] + 0.5 * r[:, 1:-1] + 0.25 * r[:, 2:]
+
+
+def _half_res(img: torch.Tensor) -> torch.Tensor:
+    """Anti-aliased half-resolution view of an (H, W, C) frame."""
+    return _binomial3(img)[::2, ::2].contiguous()
+
+
 def _shifted(ref_p: torch.Tensor, radius: int, y0: int, rows: int,
              d: torch.Tensor) -> torch.Tensor:
     """(rows * W, CH, C): the reference at (x + dx, y + dy) for the rows
@@ -235,14 +296,16 @@ def _strip_plan(labels: np.ndarray, device):
 
 def _matmul_costs(cur_lab, refs, labels: np.ndarray, n_regions: int, cand,
                   coeff_mad: float, coeff_zncc: float, chunk: int,
-                  radius: int):
+                  radius: int, bf16: bool = False):
     """The strip one-hot evaluator for one or more reference frames
     matched against the same current frame and labels: the
     candidate-invariant current-frame moments reduce once per strip, and
     each candidate chunk builds 4 channels per reference
     (L1, b, b^2, a*b) and reduces them in one ``L^T @ F`` product over the
-    regions present in the strip. Returns one (n_cand, n_regions) cost
-    table per reference, each equal to a single-reference call."""
+    regions present in the strip. ``bf16`` rounds those 4 channels to
+    bfloat16 before the sum (tpuflow's ``mxu_dtype``; the one-hot L and
+    the current-frame moments stay exact). Returns one (n_cand, n_regions)
+    cost table per reference, each equal to a single-reference call."""
     dev = cur_lab.device
     h, w, c = cur_lab.shape
     R = radius
@@ -268,7 +331,10 @@ def _matmul_costs(cur_lab, refs, labels: np.ndarray, n_regions: int, cand,
                 sub = _shifted(ref_p, R, y0, rows, d)          # (P, CH, C)
                 b = sub[..., 0]
                 fields += [_l1(cur_s, sub), b, b * b, cur_s[..., 0] * b]
-            F = torch.stack(fields, dim=1).reshape(rows * w, -1).to(ACC)
+            F = torch.stack(fields, dim=1).reshape(rows * w, -1)
+            if bf16:
+                F = F.to(torch.bfloat16)
+            F = F.to(ACC)
             acc_var[present, :, k0 : k0 + d.shape[0]] += (L.t() @ F).view(
                 n_p, 4 * n_ref, d.shape[0])
     var = acc_var.permute(2, 0, 1)                      # (n_cand, n_reg, 4k)
@@ -282,41 +348,37 @@ def _matmul_costs(cur_lab, refs, labels: np.ndarray, n_regions: int, cand,
     return out
 
 
-def _integer_costs_matmul(cur_lab, ref_lab, labels, n_regions: int, cand,
-                          coeff_mad: float, coeff_zncc: float, chunk: int,
-                          radius: int):
-    """(n_cand, n_regions) costs of every candidate (one reference)."""
-    return _matmul_costs(cur_lab, [ref_lab], labels, n_regions, cand,
-                         coeff_mad, coeff_zncc, chunk, radius)[0]
+def method_costs(method: str, cur_lab, refs, labels: np.ndarray,
+                 n_regions: int, cand, search_range: int, coeff_mad: float,
+                 coeff_zncc: float, chunk: int):
+    """The matmul methods' integer cost tables, one per reference in
+    ``refs`` (one or two), over the candidates ``cand`` (a device tensor,
+    a padded slice of :func:`method_candidates`): ``_half`` methods score
+    the half-resolution frames and labels at half the displacement, the
+    others the frames themselves."""
+    if method.startswith("matmul_half"):
+        return _matmul_costs(
+            _half_res(cur_lab), [_half_res(r) for r in refs],
+            labels[::2, ::2], n_regions, torch.div(cand, 2,
+                                                   rounding_mode="floor"),
+            coeff_mad, coeff_zncc, chunk, -(-(search_range // 2) // 2))
+    return _matmul_costs(cur_lab, refs, labels, n_regions, cand, coeff_mad,
+                         coeff_zncc, chunk, search_range // 2,
+                         method == "matmul_bf16")
 
 
-def _integer_costs_matmul_bidi(cur_lab, refp_lab, refn_lab, labels,
-                               n_regions: int, cand, coeff_mad: float,
-                               coeff_zncc: float, chunk: int, radius: int):
-    """Both time directions in one evaluator (shared one-hot matrices,
-    current-frame moments and launches); each direction's table equals
-    :func:`_integer_costs_matmul`'s. Returns (costs_prev, costs_next)."""
-    return tuple(_matmul_costs(cur_lab, [refp_lab, refn_lab], labels,
-                               n_regions, cand, coeff_mad, coeff_zncc, chunk,
-                               radius))
-
-
-def _subpixel_refine(cur_lab, ref_lab, labels, perm, bounds, n_regions: int,
-                     best_d, best_cost, subpixel_scale: int,
-                     coeff_mad: float, coeff_zncc: float):
-    """Refine each region's integer winner on a 1/subpixel grid in (-1, 1):
-    every candidate's bilinear taps lie in the winner's 3x3 integer
-    neighbourhood, gathered once in label-sorted order; one range-sum
-    pass reduces every candidate's moment fields."""
+def _grid_refine(cur_lab, ref_lab, labels, perm, bounds, n_regions: int,
+                 best_d, sub_np: np.ndarray, taps, coeff_mad: float,
+                 coeff_zncc: float):
+    """Re-score each region at its integer winner plus each fractional
+    offset of ``sub_np`` ((n_sub, (dy, dx))) and keep the best: every
+    offset's bilinear taps lie in the integer neighbourhood ``taps`` x
+    ``taps`` of the winner, gathered once in label-sorted order; one
+    range-sum pass reduces every offset's moment fields."""
     dt = cur_lab.dtype
     dev = cur_lab.device
     h, w, c = cur_lab.shape
     n_pix = h * w
-    s = 1.0 / subpixel_scale
-    sub_np = np.stack(
-        np.meshgrid(np.arange(-(subpixel_scale - 1), subpixel_scale),
-                    np.arange(-(subpixel_scale - 1), subpixel_scale),
-                    indexing="ij"), -1).reshape(-1, 2) * s  # (n_sub, 2)
     n_sub = sub_np.shape[0]
     d_pix = best_d[labels]                   # (H, W, (dy, dx)), integral
     xs = torch.arange(w, device=dev)[None, :]
@@ -334,11 +396,10 @@ def _subpixel_refine(cur_lab, ref_lab, labels, perm, bounds, n_regions: int,
         xx = xx.clamp(0, w - 1)
         return ref_flat[yy * w + xx] * ok[:, None]
 
-    nb = {(jy, jx): g(y_base + jy, x_base + jx)
-          for jy in (-1, 0, 1) for jx in (-1, 0, 1)}
+    nb = {(jy, jx): g(y_base + jy, x_base + jx) for jy in taps for jx in taps}
     fields_all = []
     for dy_f, dx_f in sub_np:
-        iy = int(np.floor(dy_f))  # -1 or 0
+        iy = int(np.floor(dy_f))
         ix = int(np.floor(dx_f))
         fx = float(dx_f - ix)
         fy = float(dy_f - iy)
@@ -358,21 +419,60 @@ def _subpixel_refine(cur_lab, ref_lab, labels, perm, bounds, n_regions: int,
     return best_d, best_cost
 
 
+def _subpixel_refine(cur_lab, ref_lab, labels, perm, bounds, n_regions: int,
+                     best_d, subpixel_scale: int, coeff_mad: float,
+                     coeff_zncc: float):
+    """Refine each region's integer winner on a 1/subpixel grid in (-1, 1)
+    (every offset's taps in the winner's 3x3 neighbourhood)."""
+    steps = np.arange(-(subpixel_scale - 1), subpixel_scale)
+    sub_np = np.stack(np.meshgrid(steps, steps, indexing="ij"),
+                      -1).reshape(-1, 2) * (1.0 / subpixel_scale)
+    return _grid_refine(cur_lab, ref_lab, labels, perm, bounds, n_regions,
+                        best_d, sub_np, (-1, 0, 1), coeff_mad, coeff_zncc)
+
+
+def _local_refine(cur_lab, ref_lab, labels, perm, bounds, n_regions: int,
+                  best_d, subpixel_scale: int, radius: int,
+                  coeff_mad: float, coeff_zncc: float):
+    """Inclusive [-radius, +radius]^2 refinement at 1/subpixel steps
+    around each region's integer winner (tpuflow's ``_local_refine``,
+    which recovers the cells a coarse search skipped; the taps span
+    (2 radius + 2)^2 integer cells)."""
+    steps = np.arange(-radius * subpixel_scale,
+                      radius * subpixel_scale + 1) * (1.0 / subpixel_scale)
+    sub_np = np.stack(np.meshgrid(steps, steps, indexing="ij"),
+                      -1).reshape(-1, 2)  # (n_sub, 2), inclusive
+    return _grid_refine(cur_lab, ref_lab, labels, perm, bounds, n_regions,
+                        best_d, sub_np, range(-radius, radius + 2),
+                        coeff_mad, coeff_zncc)
+
+
 def _argmin_and_refine(costs, cur_lab, ref_lab, labels, perm, bounds,
                        n_regions: int, search_range: int,
                        subpixel_scale: int, coeff_mad: float,
-                       coeff_zncc: float):
-    """Integer argmin over the (n_cand, n_regions) cost table, then the
-    subpixel refinement -> (uv (n_regions, 2), cost)."""
-    cand = torch.as_tensor(search_candidates(search_range),
-                           device=cur_lab.device)
+                       coeff_zncc: float, method: str = "matmul"):
+    """The scoring tail every evaluator shares: the argmin over the
+    (possibly padding-trailed) cost table of ``method``'s candidates,
+    then the subpixel refinement, or for a coarse method the zero re-seed
+    of regions no coarse candidate scored (every cost inf, as a region
+    with no pixel on the half-resolution grid) and :func:`_local_refine`
+    -> (uv (n_regions, 2), cost)."""
+    cand_np = method_candidates(method, search_range)
+    cand = torch.as_tensor(cand_np, device=cur_lab.device)
+    costs = costs[: len(cand_np)]
     best = torch.argmin(costs, dim=0)        # first minimum, as jnp.argmin
     best_cost = costs.gather(0, best[None, :])[0]
     best_d = cand[best].to(cur_lab.dtype)
-    if subpixel_scale > 1:
+    if is_coarse(method):
+        best_d = torch.where(torch.isfinite(best_cost)[:, None], best_d, 0.0)
+        best_d, best_cost = _local_refine(
+            cur_lab, ref_lab, labels, perm, bounds, n_regions, best_d,
+            max(subpixel_scale, 1), 2 if method == "matmul_half2" else 1,
+            coeff_mad, coeff_zncc)
+    elif subpixel_scale > 1:
         best_d, best_cost = _subpixel_refine(
             cur_lab, ref_lab, labels, perm, bounds, n_regions, best_d,
-            best_cost, subpixel_scale, coeff_mad, coeff_zncc)
+            subpixel_scale, coeff_mad, coeff_zncc)
     return torch.stack([best_d[:, 1], best_d[:, 0]], dim=-1), best_cost
 
 
@@ -390,6 +490,11 @@ def _plan(cur_lab, labels, n_regions: int, method: str):
             torch.from_numpy(perm).to(dev), torch.from_numpy(bounds).to(dev))
 
 
+def match_chunk(method: str, chunk: int) -> int:
+    """The candidates a chunk scores: at least 64 for the matmul methods."""
+    return max(int(chunk), 64) if method.startswith("matmul") else int(chunk)
+
+
 def _match_device(cur_lab, ref_lab, labels, n_regions: int, search_range,
                   coeff_mad, coeff_zncc, subpixel_scale, chunk,
                   method: str = "matmul"):
@@ -399,30 +504,32 @@ def _match_device(cur_lab, ref_lab, labels, n_regions: int, search_range,
     labels_np, labels_t, perm, bounds = _plan(cur_lab, labels, n_regions,
                                               method)
     n_regions = int(n_regions)
-    cand = torch.as_tensor(search_candidates(search_range),
-                           device=cur_lab.device)
-    if method == "matmul":
-        costs = _integer_costs_matmul(
-            cur_lab, ref_lab, labels_np, n_regions, cand, float(coeff_mad),
-            float(coeff_zncc), max(int(chunk), 64), search_range // 2)
-    else:
+    search_range = int(search_range)
+    chunk = match_chunk(method, chunk)
+    cand = torch.as_tensor(padded_candidates(
+        method_candidates(method, search_range), chunk),
+        device=cur_lab.device)
+    coeffs = (float(coeff_mad), float(coeff_zncc))
+    if method == "gather":
         costs = _integer_costs(cur_lab, ref_lab, perm, bounds, n_regions,
-                               cand, float(coeff_mad), float(coeff_zncc),
-                               int(chunk), search_range // 2)
+                               cand, *coeffs, chunk, search_range // 2)
+    else:
+        costs, = method_costs(method, cur_lab, [ref_lab], labels_np,
+                              n_regions, cand, search_range, *coeffs, chunk)
     return _argmin_and_refine(costs, cur_lab, ref_lab, labels_t, perm,
-                              bounds, n_regions, int(search_range),
-                              int(subpixel_scale), float(coeff_mad),
-                              float(coeff_zncc))
+                              bounds, n_regions, search_range,
+                              int(subpixel_scale), *coeffs, method)
 
 
 def _match_device_bidirectional(cur_lab, refp_lab, refn_lab, labels,
                                 n_regions: int, search_range, coeff_mad,
                                 coeff_zncc, subpixel_scale, chunk,
                                 method: str = "matmul"):
-    """Both directions' searches; ``"matmul"`` shares one evaluator
-    (:func:`_integer_costs_matmul_bidi`), ``"gather"`` runs two
-    :func:`_match_device`. Returns ((uv_p, cost_p), (uv_n, cost_n))."""
-    if method != "matmul":
+    """Both directions' searches; the matmul methods share one evaluator
+    (:func:`method_costs` over both references), ``"gather"`` runs two
+    :func:`_match_device`. Each direction equals its single-direction
+    search. Returns ((uv_p, cost_p), (uv_n, cost_n))."""
+    if method == "gather":
         return tuple(_match_device(cur_lab, ref, labels, n_regions,
                                    search_range, coeff_mad, coeff_zncc,
                                    subpixel_scale, chunk, method)
@@ -430,17 +537,20 @@ def _match_device_bidirectional(cur_lab, refp_lab, refn_lab, labels,
     labels_np, labels_t, perm, bounds = _plan(cur_lab, labels, n_regions,
                                               method)
     n_regions = int(n_regions)
-    cand = torch.as_tensor(search_candidates(search_range),
-                           device=cur_lab.device)
-    costs_pair = _integer_costs_matmul_bidi(
-        cur_lab, refp_lab, refn_lab, labels_np, n_regions, cand,
-        float(coeff_mad), float(coeff_zncc), max(int(chunk), 64),
-        search_range // 2)
+    search_range = int(search_range)
+    chunk = match_chunk(method, chunk)
+    cand = torch.as_tensor(padded_candidates(
+        method_candidates(method, search_range), chunk),
+        device=cur_lab.device)
+    coeffs = (float(coeff_mad), float(coeff_zncc))
+    refs = (refp_lab, refn_lab)
+    costs_pair = method_costs(method, cur_lab, list(refs), labels_np,
+                              n_regions, cand, search_range, *coeffs, chunk)
     return tuple(
         _argmin_and_refine(costs, cur_lab, ref, labels_t, perm, bounds,
-                           n_regions, int(search_range), int(subpixel_scale),
-                           float(coeff_mad), float(coeff_zncc))
-        for costs, ref in zip(costs_pair, (refp_lab, refn_lab)))
+                           n_regions, search_range, int(subpixel_scale),
+                           *coeffs, method)
+        for costs, ref in zip(costs_pair, refs))
 
 
 def _result_from_host(uv, cost, lab_np) -> BlockMatchResult:

@@ -58,6 +58,17 @@
 // per direction.
 //
 // sup_x/sup_y are read from device memory (no host sync to launch).
+//
+// The tile form (irls_gated_tile_launch, TILE = true) runs the same body on
+// one mesh tile halo'd by `fuse` (tpuflow's _irls_sweeps_gated on the
+// tiles of tpuflow/dist/bm_refine.py): the fields are in_h x in_w arrays
+// whose (0, 0) sits at frame coordinates (row0, col0) of an img_h x img_w
+// frame, the labels in the halo are the neighbouring tiles' real ones, a
+// cell outside the frame is not updated and no neighbour outside the frame
+// is gated in (the frame-edge masks of neighbor_masks), and the launch
+// writes the (in_h - 2 fuse) x (in_w - 2 fuse) core. The whole-frame form
+// is the tile form of a frame with no halo at (0, 0), compiled apart so
+// its code keeps its shape.
 
 #include <cuda_runtime.h>
 
@@ -95,13 +106,26 @@ __device__ __forceinline__ void edge_term(float uc, float vc, float nc,
   *ev = m * psi_gm(vc - vq, sigma_s);
 }
 
+// Where a launch reads and writes: the input arrays (in_h x in_w, the
+// output's cells `off` in from each side), the frame coordinates of their
+// (0, 0) and the frame. The whole-frame form: off 0, at (0, 0), in = img.
+struct Geometry {
+  int in_h, in_w, off, row0, col0, img_h, img_w;
+};
+
+template <bool TILE>
 __global__ void __launch_bounds__(THREADS, 1) irls_gated_kernel(
     const float* __restrict__ u_in, const float* __restrict__ v_in,
     const float* __restrict__ gx, const float* __restrict__ gy,
     const float* __restrict__ it, const int* __restrict__ labels,
     const float* __restrict__ sup_x, const float* __restrict__ sup_y,
-    float* __restrict__ u_out, float* __restrict__ v_out, int h, int w,
+    float* __restrict__ u_out, float* __restrict__ v_out, Geometry gm,
     int fuse, float lambda_d, float lambda_s, float sigma_d, float sigma_s) {
+  // Input arrays h x w; the frame's offset of their (0, 0).
+  const int h = gm.in_h, w = gm.in_w;
+  const int off = TILE ? gm.off : 0;
+  const int frow = TILE ? gm.row0 : 0, fcol = TILE ? gm.col0 : 0;
+  const int out_h = h - 2 * off, out_w = w - 2 * off;
   extern __shared__ float smem[];
   constexpr int N = SH * SW;
   float* s_u = smem;
@@ -115,9 +139,10 @@ __global__ void __launch_bounds__(THREADS, 1) irls_gated_kernel(
   const float sx = *sup_x;
   const float sy = *sup_y;
   const size_t batch = blockIdx.z * (size_t)h * w;
-  // Frame coordinates of the staged tile's (0, 0).
-  const int row0 = blockIdx.y * (SH - 2 * fuse) - fuse;
-  const int col0 = blockIdx.x * (SW - 2 * fuse) - fuse;
+  const size_t batch_out = blockIdx.z * (size_t)out_h * out_w;
+  // Input coordinates of the staged tile's (0, 0).
+  const int row0 = blockIdx.y * (SH - 2 * fuse) - fuse + off;
+  const int col0 = blockIdx.x * (SW - 2 * fuse) - fuse + off;
 
   unsigned gate[CY];
 #pragma unroll
@@ -130,16 +155,23 @@ __global__ void __launch_bounds__(THREADS, 1) irls_gated_kernel(
       const int x = col0 + tx + 32 * i;
       float u = 0.f, v = 0.f;
       unsigned bits = 0;
-      if (y >= 0 && y < h && x >= 0 && x < w) {
+      // Frame coordinates of the cell (the input's, whole-frame).
+      const int fy = frow + y, fx = fcol + x;
+      const bool in_frame =
+          !TILE || (fy >= 0 && fy < gm.img_h && fx >= 0 && fx < gm.img_w);
+      if (y >= 0 && y < h && x >= 0 && x < w && in_frame) {
         const size_t g = (size_t)y * w + x;
         u = u_in[batch + g];
         v = v_in[batch + g];
         const int lc = labels[g];
         bits = INSIDE;
-        if (x + 1 < w && labels[g + 1] == lc) bits |= RIGHT;
-        if (y + 1 < h && labels[g + w] == lc) bits |= DOWN;
-        if (x > 0 && labels[g - 1] == lc) bits |= LEFT;
-        if (y > 0 && labels[g - w] == lc) bits |= UP;
+        // A neighbour counts where it is in the input and in the frame.
+        if (x + 1 < w && (!TILE || fx + 1 < gm.img_w) && labels[g + 1] == lc)
+          bits |= RIGHT;
+        if (y + 1 < h && (!TILE || fy + 1 < gm.img_h) && labels[g + w] == lc)
+          bits |= DOWN;
+        if (x > 0 && (!TILE || fx > 0) && labels[g - 1] == lc) bits |= LEFT;
+        if (y > 0 && (!TILE || fy > 0) && labels[g - w] == lc) bits |= UP;
       }
       s_u[c] = u;
       s_v[c] = v;
@@ -234,14 +266,38 @@ __global__ void __launch_bounds__(THREADS, 1) irls_gated_kernel(
 #pragma unroll
     for (int i = 0; i < CX; ++i) {
       const int x = tx + 32 * i;
+      const int oy = row0 + y - off, ox = col0 + x - off;
       if (y < fuse || y >= SH - fuse || x < fuse || x >= SW - fuse ||
-          row0 + y >= h || col0 + x >= w)
+          oy >= out_h || ox >= out_w)
         continue;
-      const size_t g = batch + (size_t)(row0 + y) * w + col0 + x;
+      const size_t g = batch_out + (size_t)oy * out_w + ox;
       u_out[g] = s_u[y * SW + x];
       v_out[g] = s_v[y * SW + x];
     }
   }
+}
+
+template <bool TILE>
+int launch(const void* u, const void* v, const void* gx, const void* gy,
+           const void* it, const void* labels, const void* sup_x,
+           const void* sup_y, void* u_out, void* v_out, const Geometry& gm,
+           int batch, int fuse, float lambda_d, float lambda_s,
+           float sigma_d, float sigma_s, cudaStream_t stream) {
+  if (fuse < 1 || SH - 2 * fuse < 1 || SW - 2 * fuse < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      irls_gated_kernel<TILE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int out_h = gm.in_h - 2 * gm.off, out_w = gm.in_w - 2 * gm.off;
+  const dim3 grid((out_w + SW - 2 * fuse - 1) / (SW - 2 * fuse),
+                  (out_h + SH - 2 * fuse - 1) / (SH - 2 * fuse), batch);
+  irls_gated_kernel<TILE><<<grid, dim3(32, SH / CY), SMEM, stream>>>(
+      (const float*)u, (const float*)v, (const float*)gx, (const float*)gy,
+      (const float*)it, (const int*)labels, (const float*)sup_x,
+      (const float*)sup_y, (float*)u_out, (float*)v_out, gm, fuse, lambda_d,
+      lambda_s, sigma_d, sigma_s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -252,30 +308,38 @@ extern "C" int irls_gated_launch(
     const void* sup_y, void* u_out, void* v_out, int h, int w, int batch,
     int fuse, float lambda_d, float lambda_s, float sigma_d, float sigma_s,
     void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      irls_gated_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((w + SW - 2 * fuse - 1) / (SW - 2 * fuse),
-                  (h + SH - 2 * fuse - 1) / (SH - 2 * fuse), batch);
-  irls_gated_kernel<<<grid, dim3(32, SH / CY), SMEM,
-                      (cudaStream_t)stream>>>(
-      (const float*)u, (const float*)v, (const float*)gx, (const float*)gy,
-      (const float*)it, (const int*)labels, (const float*)sup_x,
-      (const float*)sup_y, (float*)u_out, (float*)v_out, h, w, fuse,
-      lambda_d, lambda_s, sigma_d, sigma_s);
-  return (int)cudaGetLastError();
+  const Geometry gm = {h, w, 0, 0, 0, h, w};
+  return launch<false>(u, v, gx, gy, it, labels, sup_x, sup_y, u_out, v_out,
+                       gm, batch, fuse, lambda_d, lambda_s, sigma_d, sigma_s,
+                       (cudaStream_t)stream);
+}
+
+// The tile form: fields (batch, hh, hw) for u, v, it and (hh, hw) for gx,
+// gy, labels, their (0, 0) at frame coordinates (row0, col0) of an img_h x
+// img_w frame; writes the (batch, hh - 2 fuse, hw - 2 fuse) core.
+extern "C" int irls_gated_tile_launch(
+    const void* u, const void* v, const void* gx, const void* gy,
+    const void* it, const void* labels, const void* sup_x,
+    const void* sup_y, void* u_out, void* v_out, int hh, int hw, int row0,
+    int col0, int img_h, int img_w, int batch, int fuse, float lambda_d,
+    float lambda_s, float sigma_d, float sigma_s, void* stream) {
+  if (hh - 2 * fuse < 1 || hw - 2 * fuse < 1)
+    return (int)cudaErrorInvalidValue;
+  const Geometry gm = {hh, hw, fuse, row0, col0, img_h, img_w};
+  return launch<true>(u, v, gx, gy, it, labels, sup_x, sup_y, u_out, v_out,
+                      gm, batch, fuse, lambda_d, lambda_s, sigma_d, sigma_s,
+                      (cudaStream_t)stream);
 }
 
 // Blocks of irls_gated_kernel one SM holds at once, or -(CUDA error).
 extern "C" int irls_gated_blocks_per_sm() {
   cudaError_t err = cudaFuncSetAttribute(
-      irls_gated_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      irls_gated_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)SMEM);
   int blocks = 0;
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, irls_gated_kernel, THREADS, SMEM);
+        &blocks, irls_gated_kernel<false>, THREADS, SMEM);
   }
   return err == cudaSuccess ? blocks : -(int)err;
 }

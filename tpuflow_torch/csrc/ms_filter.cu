@@ -54,6 +54,19 @@
 // point outside the frame, on the same row runs in the same order; dx,
 // dy and the count are summed in float, term by term in offset order, as
 // the plain version sums them, so no bound on E keeps them exact.
+//
+// Both forms read their points from an input plane of in_h x in_w pixels
+// whose pixel (off + y, off + x) is query (y, x) of the h x w output, and
+// whose (0, 0) query sits at frame coordinates (row0, col0): the whole
+// frame (off 0, origin (0, 0)), or a mesh tile halo'd by E with the
+// sentinel already outside the frame (off E; tpuflow's _ms_sharded_fn).
+// The empty-window jump and the positions use the frame coordinates.
+// Two optional outputs, compiled in a second instantiation of each form
+// (EXTRA) so the flagship's filter keeps its code: drift2, each query's
+// largest ex^2 + ey^2 before a step (tpuflow's with_drift, reduced by the
+// caller), and traj, the (iters, h, w, 2) drift after each step
+// (return_trajectory). A query that stops repeats its state in the
+// iterations it skips, as the plain version computes them.
 
 #include <cuda_runtime.h>
 
@@ -132,24 +145,53 @@ __device__ __forceinline__ bool settle(Query& q, float n, float s_dx,
   return fixed;
 }
 
-// The query's result.
+// Where a launch reads and writes (see the header).
+struct Geometry {
+  int in_h, in_w;  // the input plane
+  int h, w;        // the queries (the output)
+  int off;         // input pixel of query (0, 0), on both axes
+  int row0, col0;  // frame coordinates of query (0, 0)
+};
+
+// The optional outputs (null: not asked for).
+struct Extra {
+  float* drift2;  // (h, w)
+  float* traj;    // (iters, h, w, 2)
+};
+
+// The query's result; (x, y) the query, (fx, fy) its frame coordinates.
 __device__ __forceinline__ void store(const Query& q, float* __restrict__ pos,
                                       float* __restrict__ col, int x, int y,
-                                      int w) {
+                                      int w, int fx, int fy) {
   const size_t g = (size_t)y * w + x;
-  pos[2 * g] = (float)x + q.ex;
-  pos[2 * g + 1] = (float)y + q.ey;
+  pos[2 * g] = (float)fx + q.ex;
+  pos[2 * g + 1] = (float)fy + q.ey;
   col[3 * g] = q.c0;
   col[3 * g + 1] = q.c1;
   col[3 * g + 2] = q.c2;
 }
 
+// Drift after step `it`, and, if the query stopped there, after every
+// later step too.
+__device__ __forceinline__ void record(const Extra& e, const Query& q,
+                                       int it, int iters, bool stopped,
+                                       size_t g, size_t plane) {
+  if (e.traj == nullptr) return;
+  const int last = stopped ? iters : it + 1;
+  for (int k = it; k < last; ++k) {
+    e.traj[2 * (k * plane + g)] = q.ex;
+    e.traj[2 * (k * plane + g) + 1] = q.ey;
+  }
+}
+
+template <bool EXTRA>
 __global__ void __launch_bounds__(TW * MAX_TH, 1)
     ms_filter_kernel(const float* __restrict__ lab,
                      const float* __restrict__ sentinel,
-                     float* __restrict__ pos, float* __restrict__ col, int h,
-                     int w, int E, int reach, int iters, float hs2,
-                     float hr2) {
+                     float* __restrict__ pos, float* __restrict__ col,
+                     Geometry gm, Extra ex_out, int E, int reach, int iters,
+                     float hs2, float hr2) {
+  const int h = gm.h, w = gm.w;
   extern __shared__ float4 smem[];
   const int th = blockDim.x / TW;
   const int sh = th + 2 * E;
@@ -159,9 +201,9 @@ __global__ void __launch_bounds__(TW * MAX_TH, 1)
   const float sent = *sentinel;
   const int lx = threadIdx.x % TW;
   const int ly = threadIdx.x / TW;
-  // Frame coordinates of the shared tile's (0, 0).
-  const int row0 = blockIdx.y * th - E;
-  const int col0 = blockIdx.x * TW - E;
+  // Input coordinates of the shared tile's (0, 0).
+  const int row0 = blockIdx.y * th + gm.off - E;
+  const int col0 = blockIdx.x * TW + gm.off - E;
 
   // Staging: STAGE_BATCH points' loads in flight a thread, then their
   // stores, so a block waits for a few round trips to device memory, not
@@ -176,8 +218,10 @@ __global__ void __launch_bounds__(TW * MAX_TH, 1)
       const int c = i - r * sw;
       const int y = row0 + r;
       const int x = col0 + c;
-      const bool in = i < sh * sw && y >= 0 && y < h && x >= 0 && x < w;
-      const float* p = lab + 3 * ((size_t)(in ? y : 0) * w + (in ? x : 0));
+      const bool in =
+          i < sh * sw && y >= 0 && y < gm.in_h && x >= 0 && x < gm.in_w;
+      const float* p =
+          lab + 3 * ((size_t)(in ? y : 0) * gm.in_w + (in ? x : 0));
       v[b][0] = in ? p[0] : sent;
       v[b][1] = in ? p[1] : sent;
       v[b][2] = in ? p[2] : sent;
@@ -192,12 +236,16 @@ __global__ void __launch_bounds__(TW * MAX_TH, 1)
   const int y = blockIdx.y * th + ly;
   const int x = blockIdx.x * TW + lx;
   if (y >= h || x >= w) return;
+  const int fy = gm.row0 + y, fx = gm.col0 + x;
+  const size_t g = (size_t)y * w + x;
   const int center = (ly + E) * pitch + (lx + E);
   const float4 own = tile.load(center);
   Query qs = {0.f, 0.f, own.x, own.y, own.z};
+  float d2 = 0.f;
   const int key = (1 << COUNT_SHIFT) + E;
   for (int it = 0; it < iters; ++it) {
     const float ex = qs.ex, ey = qs.ey;
+    if (EXTRA) d2 = fmaxf(d2, ex * ex + ey * ey);
     const float c0 = qs.c0, c1 = qs.c1, c2 = qs.c2;
     float s0 = 0.f, s1 = 0.f, s2 = 0.f;
     int s_n = 0, s_dx = 0, s_dy = 0;
@@ -237,29 +285,39 @@ __global__ void __launch_bounds__(TW * MAX_TH, 1)
     }
     // The int sums are exact float32 integers (see the header).
     const bool fixed = settle(qs, (float)s_n, (float)s_dx, (float)s_dy, s0,
-                              s1, s2, x, y);
+                              s1, s2, fx, fy);
+    if (EXTRA) record(ex_out, qs, it, iters, fixed, g, (size_t)h * w);
     if (fixed) break;
   }
-  store(qs, pos, col, x, y, w);
+  if (EXTRA && ex_out.drift2 != nullptr) ex_out.drift2[g] = d2;
+  store(qs, pos, col, x, y, w, fx, fy);
 }
 
 // The wide form: one query a thread, TW columns by blockDim.x / TW rows of
 // queries a block, the points read from device memory.
+template <bool EXTRA>
 __global__ void __launch_bounds__(TW * MAX_TH, 1)
     ms_filter_wide_kernel(const float* __restrict__ lab,
                           const float* __restrict__ sentinel,
                           float* __restrict__ pos, float* __restrict__ col,
-                          int h, int w, int E, int reach, int iters,
-                          float hs2, float hr2) {
+                          Geometry gm, Extra ex_out, int E, int reach,
+                          int iters, float hs2, float hr2) {
+  const int h = gm.h, w = gm.w;
   const int th = blockDim.x / TW;
   const int y = blockIdx.y * th + threadIdx.x / TW;
   const int x = blockIdx.x * TW + threadIdx.x % TW;
   if (y >= h || x >= w) return;
+  const int fy = gm.row0 + y, fx = gm.col0 + x;
+  const size_t g = (size_t)y * w + x;
+  // The query's input pixel.
+  const int iy = y + gm.off, ix = x + gm.off;
   const float sent = *sentinel;
-  const float* own = lab + 3 * ((size_t)y * w + x);
+  const float* own = lab + 3 * ((size_t)iy * gm.in_w + ix);
   Query qs = {0.f, 0.f, __ldg(own), __ldg(own + 1), __ldg(own + 2)};
+  float d2 = 0.f;
   for (int it = 0; it < iters; ++it) {
     const float ex = qs.ex, ey = qs.ey;
+    if (EXTRA) d2 = fmaxf(d2, ex * ex + ey * ey);
     const float c0 = qs.c0, c1 = qs.c1, c2 = qs.c2;
     float s0 = 0.f, s1 = 0.f, s2 = 0.f;
     float s_n = 0.f, s_dx = 0.f, s_dy = 0.f;
@@ -271,13 +329,13 @@ __global__ void __launch_bounds__(TW * MAX_TH, 1)
       if (!(ty2 <= hs2)) continue;
       int lo, hi;
       row_run(ex, ty2, hs2, E, lo, hi);
-      const int py = y + dy;
-      const bool row_in = py >= 0 && py < h;
-      const float* row = lab + 3 * (size_t)(row_in ? py : 0) * w;
+      const int py = iy + dy;
+      const bool row_in = py >= 0 && py < gm.in_h;
+      const float* row = lab + 3 * (size_t)(row_in ? py : 0) * gm.in_w;
       const float fdy = (float)dy;
       for (int dx = lo; dx <= hi; ++dx) {
-        const int px = x + dx;
-        const bool in = row_in && px >= 0 && px < w;
+        const int px = ix + dx;
+        const bool in = row_in && px >= 0 && px < gm.in_w;
         const float* p = row + 3 * (in ? px : 0);
         const float q0 = in ? __ldg(p) : sent;
         const float q1 = in ? __ldg(p + 1) : sent;
@@ -295,40 +353,62 @@ __global__ void __launch_bounds__(TW * MAX_TH, 1)
         }
       }
     }
-    if (settle(qs, s_n, s_dx, s_dy, s0, s1, s2, x, y)) break;
+    const bool fixed = settle(qs, s_n, s_dx, s_dy, s0, s1, s2, fx, fy);
+    if (EXTRA) record(ex_out, qs, it, iters, fixed, g, (size_t)h * w);
+    if (fixed) break;
   }
-  store(qs, pos, col, x, y, w);
+  if (EXTRA && ex_out.drift2 != nullptr) ex_out.drift2[g] = d2;
+  store(qs, pos, col, x, y, w, fx, fy);
 }
 
 size_t smem_bytes(int E, int th) {
   return Layout::BYTES * (size_t)(th + 2 * E) * (size_t)((TW + 2 * E) | 1);
 }
 
-}  // namespace
-
-// wide: the wide form (th query rows a block, nothing staged).
-extern "C" int ms_filter_launch(const void* lab, const void* sentinel,
-                                void* pos, void* col, int h, int w, int E,
-                                int reach, int iters, int th, int wide,
-                                float hs2, float hr2, void* stream) {
-  if (E < 0 || (E > MAX_E && !wide) || th < MIN_TH || th > MAX_TH)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((w + TW - 1) / TW, (h + th - 1) / th);
+template <bool EXTRA>
+int launch(const float* lab, const float* sentinel, float* pos, float* col,
+           const Geometry& gm, const Extra& ex, int E, int reach, int iters,
+           int th, int wide, float hs2, float hr2, cudaStream_t stream) {
+  const dim3 grid((gm.w + TW - 1) / TW, (gm.h + th - 1) / th);
   if (wide) {
-    ms_filter_wide_kernel<<<grid, TW * th, 0, (cudaStream_t)stream>>>(
-        (const float*)lab, (const float*)sentinel, (float*)pos, (float*)col,
-        h, w, E, reach, iters, hs2, hr2);
+    ms_filter_wide_kernel<EXTRA><<<grid, TW * th, 0, stream>>>(
+        lab, sentinel, pos, col, gm, ex, E, reach, iters, hs2, hr2);
     return (int)cudaGetLastError();
   }
   const size_t smem = smem_bytes(E, th);
   cudaError_t err = cudaFuncSetAttribute(
-      ms_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ms_filter_kernel<EXTRA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ms_filter_kernel<<<grid, TW * th, smem, (cudaStream_t)stream>>>(
-      (const float*)lab, (const float*)sentinel, (float*)pos, (float*)col, h,
-      w, E, reach, iters, hs2, hr2);
+  ms_filter_kernel<EXTRA><<<grid, TW * th, smem, stream>>>(
+      lab, sentinel, pos, col, gm, ex, E, reach, iters, hs2, hr2);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// wide: the wide form (th query rows a block, nothing staged). The input
+// is in_h x in_w, query (y, x) at its pixel (off + y, off + x) and at frame
+// coordinates (row0 + y, col0 + x); drift2 and traj may be null (see the
+// header).
+extern "C" int ms_filter_launch(const void* lab, const void* sentinel,
+                                void* pos, void* col, void* drift2,
+                                void* traj, int in_h, int in_w, int h, int w,
+                                int off, int row0, int col0, int E, int reach,
+                                int iters, int th, int wide, float hs2,
+                                float hr2, void* stream) {
+  if (E < 0 || (E > MAX_E && !wide) || th < MIN_TH || th > MAX_TH ||
+      off < 0 || off + h > in_h || off + w > in_w)
+    return (int)cudaErrorInvalidValue;
+  const Geometry gm = {in_h, in_w, h, w, off, row0, col0};
+  const Extra ex = {(float*)drift2, (float*)traj};
+  if (drift2 != nullptr || traj != nullptr)
+    return launch<true>((const float*)lab, (const float*)sentinel,
+                        (float*)pos, (float*)col, gm, ex, E, reach, iters,
+                        th, wide, hs2, hr2, (cudaStream_t)stream);
+  return launch<false>((const float*)lab, (const float*)sentinel,
+                       (float*)pos, (float*)col, gm, ex, E, reach, iters, th,
+                       wide, hs2, hr2, (cudaStream_t)stream);
 }
 
 // Blocks of the kernel (wide: of the wide form) one SM holds at once for
@@ -338,15 +418,15 @@ extern "C" int ms_filter_blocks_per_sm(int E, int th, int wide) {
   cudaError_t err;
   if (wide) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, ms_filter_wide_kernel, TW * th, 0);
+        &blocks, ms_filter_wide_kernel<false>, TW * th, 0);
   } else {
     const size_t smem = smem_bytes(E, th);
-    err = cudaFuncSetAttribute(ms_filter_kernel,
+    err = cudaFuncSetAttribute(ms_filter_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, ms_filter_kernel, TW * th, smem);
+          &blocks, ms_filter_kernel<false>, TW * th, smem);
   }
   return err == cudaSuccess ? blocks : -(int)err;
 }

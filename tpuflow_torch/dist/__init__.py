@@ -3,9 +3,12 @@ ranks (counterpart of :mod:`tpuflow.dist`).
 
 NCCL between cards, gloo on the CPU (and, staged through the host, between
 ranks that share one card). :func:`run_on_mesh` spawns the ranks and runs a
-function on each. Not ported yet (ROADMAP.md, Queue 1): ``farneback_sharded``,
-the sharded block matching and refine (``dist/bm.py``, ``dist/bm_refine.py``),
-``mean_shift_filter_sharded`` and the sharded ops of ``dist/ops.py``.
+function on each. The flagship's sharded stages are here too: the
+candidate-parallel search (``dist/bm.py``), the tiled gated refine and
+affine fit (``dist/bm_refine.py``); its tiled mean-shift filter is
+``tpuflow_torch.segmentation.meanshift.mean_shift_filter_sharded``. Not
+ported yet (ROADMAP.md, Queue 1): ``farneback_sharded`` and the sharded
+ops of ``dist/ops.py``.
 """
 
 from tpuflow_torch.dist.mesh import Mesh, make_mesh, mesh_factor, run_on_mesh  # noqa: F401
@@ -24,3 +27,9 @@ from tpuflow_torch.dist.solvers import (  # noqa: F401
 )
 from tpuflow_torch.dist.pyramid import optical_flow_pyramid_sharded  # noqa: F401
 from tpuflow_torch.dist.scaling import weak_scaling_report  # noqa: F401
+from tpuflow_torch.dist.bm import block_matching_labels_sharded  # noqa: F401
+from tpuflow_torch.dist.bm_refine import (  # noqa: F401
+    affine_parametric_flow_sharded,
+    gradient_method_flow_sharded,
+    gradient_method_flow_sharded_bidirectional,
+)

@@ -32,6 +32,12 @@ weighted by the direction coherence 0.5 * (1 + cos(u, u_nbr)), batched
 over reference directions; CUDA tensors take ``csrc/irls_gated.cu``, which
 computes each edge's term once in the same way.
 
+:func:`irls_gated_tile_sweeps` is the same gated sweep on one halo'd
+mesh tile at a frame origin (tpuflow's ``_irls_sweeps_gated`` on the
+tiles of ``tpuflow/dist/bm_refine.py``), through the tile form of
+``csrc/irls_gated.cu``; its plain version is
+:func:`irls_gated_tile_sweeps_plain`.
+
 A block of sweeps deeper than one launch takes runs as several launches
 (:func:`tpuflow_torch.kernels._build.split_fuse`): the sweeps are
 sequential, so the result is bitwise that of one.
@@ -47,10 +53,12 @@ from tpuflow_torch.core import borders as bd
 from tpuflow_torch.kernels import _build
 
 # Launches of the CUDA kernels in this process (never the plain versions):
-# irls_sweeps, irls_tile_sweeps and irls_gated_sweeps.
+# irls_sweeps, irls_tile_sweeps, irls_gated_sweeps and
+# irls_gated_tile_sweeps.
 LAUNCHES = 0
 LAUNCHES_TILE = 0
 LAUNCHES_GATED = 0
+LAUNCHES_GATED_TILE = 0
 # The staged tiles (rows, columns) and threads per block of
 # csrc/irls_stencil.cu (irls_sweeps and irls_tile_sweeps: WIDE, and
 # NARROW, which its launcher takes where WIDE's blocks would fill a
@@ -329,6 +337,10 @@ def _lib_gated() -> ctypes.CDLL:
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
         + [ctypes.c_void_p])
     lib.irls_gated_launch.restype = ctypes.c_int
+    lib.irls_gated_tile_launch.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4
+        + [ctypes.c_void_p])
+    lib.irls_gated_tile_launch.restype = ctypes.c_int
     lib.irls_gated_blocks_per_sm.argtypes = []
     lib.irls_gated_blocks_per_sm.restype = ctypes.c_int
     lib.irls_gated_error_string.argtypes = [ctypes.c_int]
@@ -451,4 +463,149 @@ def _gated_launch(u, v, gx, gy, it, labels, sup_x, sup_y, fuse, lambda_d,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, "irls_gated", rc)
     LAUNCHES_GATED += 1
+    return u_out, v_out
+
+
+def irls_gated_tile_sweeps_plain(u_p, v_p, gx_p, gy_p, it_p, lab_p, sup_x,
+                                 sup_y, row0: int, col0: int, img_h: int,
+                                 img_w: int, fuse: int, lambda_d: float,
+                                 lambda_s: float, sigma_d: float,
+                                 sigma_s: float):
+    """``fuse`` region-gated IRLS sweeps on one halo'd tile in plain
+    PyTorch: tpuflow's ``_irls_sweeps_gated``, the neighbour gates from the
+    tile's labels and the frame-edge masks of :func:`neighbor_masks` at
+    frame origin (row0, col0), valid regions shrinking by one pixel a
+    sweep. ``u_p``, ``v_p``, ``it_p``: (hh, hw) or (B, hh, hw);
+    ``gx_p``, ``gy_p``, ``lab_p``: (hh, hw). Returns the core, ``fuse``
+    cells in from each side."""
+    from tpuflow_torch.solvers.mestimators import geman_mcclure_psi as psi
+    from tpuflow_torch.utils.numerics import sqrt
+
+    hh, hw = gx_p.shape
+    masks = neighbor_masks(row0, col0, hh, hw, img_h, img_w, gx_p.device)
+    lab_c = lab_p[1 : hh - 1, 1 : hw - 1]
+    gates = [(m[1 : hh - 1, 1 : hw - 1]
+              & (lab_p[1 + dy : hh - 1 + dy, 1 + dx : hw - 1 + dx] == lab_c))
+             .to(u_p.dtype) for (dx, dy), m in zip(NEIGHBORS, masks)]
+    u, v = u_p, v_p
+    for t in range(fuse):
+        sh, sw = hh - 2 * t, hw - 2 * t
+        uc = u[..., 1 : sh - 1, 1 : sw - 1]
+        vc = v[..., 1 : sh - 1, 1 : sw - 1]
+        o = t + 1
+        core = (slice(o, o + sh - 2), slice(o, o + sw - 2))
+        gxc, gyc = gx_p[core], gy_p[core]
+        psi_d = psi(gxc * uc + gyc * vc + it_p[(..., *core)], sigma_d)
+        norm_f = sqrt(u * u + v * v)
+        norm_c = norm_f[..., 1 : sh - 1, 1 : sw - 1]
+        nx = torch.zeros_like(uc)
+        ny = torch.zeros_like(vc)
+        for (dx, dy), gate in zip(NEIGHBORS, gates):
+            nb = (..., slice(1 + dy, sh - 1 + dy), slice(1 + dx, sw - 1 + dx))
+            un, vn, nn = u[nb], v[nb], norm_f[nb]
+            prod = norm_c * nn
+            cosang = torch.where(
+                prod > 0, (uc * un + vc * vn) / torch.clamp_min(prod, 1e-30),
+                1.0)
+            m = gate[t : t + sh - 2, t : t + sw - 2] * (0.5 * (1.0 + cosang))
+            nx = nx + m * psi(uc - un, sigma_s)
+            ny = ny + m * psi(vc - vn, sigma_s)
+        u, v = (uc - (lambda_d * gxc * psi_d + lambda_s * nx) / sup_x,
+                vc - (lambda_d * gyc * psi_d + lambda_s * ny) / sup_y)
+    return u, v
+
+
+def irls_gated_tile_sweeps(u_p, v_p, gx_p, gy_p, it_p, lab_p, sup_x, sup_y,
+                           row0: int, col0: int, img_h: int, img_w: int,
+                           fuse: int, lambda_d: float, lambda_s: float,
+                           sigma_d: float, sigma_s: float):
+    """``fuse`` region-gated IRLS sweeps on one halo'd tile; returns its
+    core (``fuse`` cells in from each side).
+
+    ``u_p``, ``v_p``, ``it_p``: (hh, hw) or (B, hh, hw), one field per
+    reference direction; ``gx_p``, ``gy_p``, ``lab_p``: (hh, hw), shared;
+    the halos hold the neighbouring tiles' values (real labels), and
+    (row0, col0) are the frame coordinates of the arrays' (0, 0) in an
+    (img_h, img_w) frame. CPU tensors take
+    :func:`irls_gated_tile_sweeps_plain`; CUDA tensors (contiguous float32
+    fields, int32 labels, one-element float32 ``sup_x``/``sup_y`` on the
+    same device) ceil(fuse / GATED_MAX_FUSE) launches of the tile form of
+    ``csrc/irls_gated.cu``, each taking the last one's core, or raise.
+    """
+    if u_p.shape != v_p.shape or u_p.shape != it_p.shape or u_p.dim() not in (
+            2, 3):
+        raise ValueError("irls_gated_tile_sweeps: u, v, it must share an "
+                         f"(hh, hw) or (B, hh, hw) shape, got "
+                         f"{tuple(u_p.shape)}, {tuple(v_p.shape)}, "
+                         f"{tuple(it_p.shape)}")
+    _build.check_fields("irls_gated_tile_sweeps", gx_p, gy_p)
+    if (lab_p.shape != gx_p.shape or u_p.shape[-2:] != gx_p.shape
+            or lab_p.device != gx_p.device):
+        raise ValueError("irls_gated_tile_sweeps: labels and the fields' "
+                         "(hh, hw) must match gx on its device")
+    if fuse < 1:
+        raise ValueError(f"irls_gated_tile_sweeps: need fuse >= 1, got {fuse}")
+    _check_sups("irls_gated_tile_sweeps", u_p, sup_x, sup_y)
+    hh, hw = gx_p.shape
+    if hh - 2 * fuse < 1 or hw - 2 * fuse < 1:
+        raise ValueError(f"irls_gated_tile_sweeps: a {hh}x{hw} tile has no "
+                         f"core inside a {fuse}-pixel halo")
+    consts = (lambda_d, lambda_s, sigma_d, sigma_s)
+    if u_p.device.type == "cpu":
+        return irls_gated_tile_sweeps_plain(u_p, v_p, gx_p, gy_p, it_p, lab_p,
+                                            sup_x, sup_y, row0, col0, img_h,
+                                            img_w, fuse, *consts)
+    for f in (u_p, v_p, it_p, sup_x, sup_y):
+        if f.device != gx_p.device or f.dtype != torch.float32:
+            raise TypeError("irls_gated_tile_sweeps: the CUDA kernel takes "
+                            f"float32 on {gx_p.device}, got {f.dtype} on "
+                            f"{f.device}")
+        if not f.is_contiguous():
+            raise ValueError("irls_gated_tile_sweeps: the CUDA kernel takes "
+                             "contiguous fields")
+    if lab_p.dtype != torch.int32 or not lab_p.is_contiguous():
+        raise TypeError("irls_gated_tile_sweeps: the CUDA kernel takes "
+                        f"contiguous int32 labels, got {lab_p.dtype}")
+    return _split_gated_tile(_gated_tile_launch, u_p, v_p, gx_p, gy_p, it_p,
+                             lab_p, sup_x, sup_y, row0, col0, img_h, img_w,
+                             fuse, *consts)
+
+
+def _split_gated_tile(launch, u_p, v_p, gx_p, gy_p, it_p, lab_p, sup_x, sup_y,
+                      row0, col0, img_h, img_w, fuse, *consts,
+                      f_max=GATED_MAX_FUSE):
+    """``fuse`` gated sweeps on one halo'd tile as ceil(fuse / f_max) calls
+    of ``launch``, which takes :func:`irls_gated_tile_sweeps_plain`'s
+    arguments and runs at most ``f_max`` sweeps: each call takes the last
+    one's core, its origin moved in by the sweeps run so far (``it_p``
+    rides with the fixed fields)."""
+    return _build.split_fuse(
+        lambda u, v, fixed, off, k: launch(
+            u, v, fixed[0], fixed[1], fixed[2], fixed[3], sup_x, sup_y,
+            row0 + off, col0 + off, img_h, img_w, k, *consts),
+        u_p, v_p, fuse, f_max, (gx_p, gy_p, it_p, lab_p), step=1)
+
+
+def _gated_tile_launch(u_p, v_p, gx_p, gy_p, it_p, lab_p, sup_x, sup_y, row0,
+                       col0, img_h, img_w, fuse, lambda_d, lambda_s, sigma_d,
+                       sigma_s):
+    """One launch of the tile form of irls_gated_kernel (arguments as
+    :func:`irls_gated_tile_sweeps_plain`'s); returns the core."""
+    global LAUNCHES_GATED_TILE
+    gated_core(fuse)
+    lib = _lib_gated()
+    hh, hw = gx_p.shape
+    batch = u_p.shape[0] if u_p.dim() == 3 else 1
+    u_out = u_p.new_empty((*u_p.shape[:-2], hh - 2 * fuse, hw - 2 * fuse))
+    v_out = torch.empty_like(u_out)
+    with torch.cuda.device(u_p.device):
+        rc = lib.irls_gated_tile_launch(
+            u_p.data_ptr(), v_p.data_ptr(), gx_p.data_ptr(), gy_p.data_ptr(),
+            it_p.data_ptr(), lab_p.data_ptr(), sup_x.data_ptr(),
+            sup_y.data_ptr(), u_out.data_ptr(), v_out.data_ptr(), hh, hw,
+            int(row0), int(col0), img_h, img_w, batch, fuse, lambda_d,
+            lambda_s, sigma_d, sigma_s,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(lib, "irls_gated", rc)
+    LAUNCHES_GATED_TILE += 1
     return u_out, v_out

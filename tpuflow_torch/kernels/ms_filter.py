@@ -24,6 +24,15 @@ tile of the window fits a block's shared memory (E <= 52), else the wide
 form, which reads each point from device memory (the same runs, order
 and exit; dx, dy and the count summed in float as the plain version sums
 them).
+
+Two optional outputs ride on the same launch (tpuflow's ``with_drift``
+and ``return_trajectory``): each query's largest squared drift before a
+step, which :func:`mean_shift_filter` reduces on the device to the largest
+drift, and the (iters, H, W, 2) drift after each step.
+:func:`mean_shift_filter_tile` runs the filter on one mesh tile halo'd by
+E, the sentinel already outside the frame, at the tile's frame origin
+(tpuflow's ``_ms_sharded_fn`` body); :func:`mean_shift_filter_tile_plain`
+is its plain version. Its launches count in :data:`LAUNCHES_TILE`.
 """
 
 from __future__ import annotations
@@ -34,9 +43,12 @@ import math
 import torch
 
 from tpuflow_torch.kernels import _build
+from tpuflow_torch.utils import numerics
 
-# Launches of the CUDA kernel in this process (never the plain version).
+# Launches of the CUDA kernel in this process (never the plain version):
+# mean_shift_filter and mean_shift_filter_tile.
 LAUNCHES = 0
+LAUNCHES_TILE = 0
 # A block's queries (one thread each): TILE_W columns (a warp is one row)
 # by TILE_H rows, fewer where a wide window's tile would not fit one block
 # (csrc/ms_filter.cu's TW, MAX_TH). The shared tile is the queries plus an
@@ -52,7 +64,7 @@ MAX_E = 127
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from csrc/ms_filter.cu."""
     lib.ms_filter_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_float] * 2
         + [ctypes.c_void_p])
     lib.ms_filter_launch.restype = ctypes.c_int
     lib.ms_filter_blocks_per_sm.argtypes = [ctypes.c_int] * 3
@@ -103,29 +115,29 @@ def window(kernel_spatial: int, margin: int | None) -> int:
     return R + (R if margin is None else int(margin))
 
 
-def mean_shift_filter_plain(lab: torch.Tensor, kernel_spatial: int = 20,
-                            kernel_intensity: float = 16.0 / 255.0,
-                            iters: int = 8, margin: int | None = None):
-    """The kernel's function in plain PyTorch; returns (pos (H, W, 2) xy,
-    color (H, W, 3)). One pass of ~25 elementwise ops per offset."""
-    from tpuflow_torch.segmentation.meanshift import _color_sentinel
-
-    h, w = lab.shape[:2]
-    dt = lab.dtype
-    E = window(kernel_spatial, margin)
+def _filter_plain(labh, h: int, w: int, row0: int, col0: int, E: int,
+                  kernel_spatial, kernel_intensity, iters: int,
+                  with_drift: bool, return_trajectory: bool):
+    """The kernel's function on (3, h + 2E, w + 2E) sentinel-padded planes
+    whose (E, E) pixel is the query at frame coordinates (row0, col0).
+    Returns (pos, color, drift2 or None, trajectory or None); drift2 is
+    each query's largest squared drift before a step."""
+    dt = labh.dtype
+    dev = labh.device
     hs2 = float(kernel_spatial) ** 2
     hr2 = float(kernel_intensity) ** 2
-    planes = lab.permute(2, 0, 1)
-    labh = _color_sentinel(lab, kernel_intensity).expand(
-        3, h + 2 * E, w + 2 * E).clone()
-    labh[:, E : E + h, E : E + w] = planes
-    xs = torch.arange(w, dtype=dt, device=lab.device)[None, :].expand(h, w)
-    ys = torch.arange(h, dtype=dt, device=lab.device)[:, None].expand(h, w)
+    planes = labh[:, E : E + h, E : E + w]
+    xs = (torch.arange(w, dtype=dt, device=dev) + col0)[None, :].expand(h, w)
+    ys = (torch.arange(h, dtype=dt, device=dev) + row0)[:, None].expand(h, w)
 
-    ex = torch.zeros((h, w), dtype=dt, device=lab.device)
+    ex = torch.zeros((h, w), dtype=dt, device=dev)
     ey = torch.zeros_like(ex)
+    drift2 = torch.zeros_like(ex) if with_drift else None
+    traj = []
     c0, c1, c2 = planes[0], planes[1], planes[2]
     for _ in range(iters):
+        if with_drift:
+            drift2 = torch.maximum(drift2, ex * ex + ey * ey)
         s_dx, s_dy, s_n, s0, s1, s2 = (torch.zeros_like(ex) for _ in range(6))
         for dy in range(-E, E + 1):
             ty = dy - ey
@@ -149,47 +161,163 @@ def mean_shift_filter_plain(lab: torch.Tensor, kernel_spatial: int = 20,
         ex = torch.where(got, s_dx / n, -xs)
         ey = torch.where(got, s_dy / n, -ys)
         c0, c1, c2 = s0 / n, s1 / n, s2 / n
+        if return_trajectory:
+            traj.append(torch.stack([ex, ey], dim=-1))
     return (torch.stack([xs + ex, ys + ey], dim=-1),
-            torch.stack([c0, c1, c2], dim=-1))
+            torch.stack([c0, c1, c2], dim=-1), drift2,
+            torch.stack(traj) if return_trajectory else None)
+
+
+def _extras(pos, col, drift2, traj, with_drift, return_trajectory):
+    """(pos, col[, largest drift][, trajectory]) as tpuflow returns them:
+    the largest drift is the root of the largest drift2, a 0-d tensor on
+    the device (the root is monotone, so this is the largest root)."""
+    out = (pos, col)
+    if with_drift:
+        out += (numerics.sqrt(drift2.max()),)
+    if return_trajectory:
+        out += (traj,)
+    return out
+
+
+def _padded_planes(lab: torch.Tensor, E: int, sentinel) -> torch.Tensor:
+    h, w = lab.shape[:2]
+    labh = sentinel.expand(3, h + 2 * E, w + 2 * E).clone()
+    labh[:, E : E + h, E : E + w] = lab.permute(2, 0, 1)
+    return labh
+
+
+def mean_shift_filter_plain(lab: torch.Tensor, kernel_spatial: int = 20,
+                            kernel_intensity: float = 16.0 / 255.0,
+                            iters: int = 8, margin: int | None = None,
+                            with_drift: bool = False,
+                            return_trajectory: bool = False):
+    """The kernel's function in plain PyTorch; returns (pos (H, W, 2) xy,
+    color (H, W, 3)), then the largest drift (``with_drift``) and the
+    (iters, H, W, 2) drift after each step (``return_trajectory``). One
+    pass of ~25 elementwise ops per offset."""
+    from tpuflow_torch.segmentation.meanshift import _color_sentinel
+
+    h, w = lab.shape[:2]
+    E = window(kernel_spatial, margin)
+    labh = _padded_planes(lab, E, _color_sentinel(lab, kernel_intensity))
+    return _extras(*_filter_plain(labh, h, w, 0, 0, E, kernel_spatial,
+                                  kernel_intensity, iters, with_drift,
+                                  return_trajectory),
+                   with_drift, return_trajectory)
+
+
+def _check_lab(name, lab):
+    if lab.dim() != 3 or lab.shape[-1] != 3:
+        raise ValueError(f"{name}: need (H, W, 3) Lab, got "
+                         f"{tuple(lab.shape)}")
+    if lab.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for {lab.device}")
+    if lab.device.type == "cuda" and (lab.dtype != torch.float32
+                                      or not lab.is_contiguous()):
+        raise TypeError(f"{name}: the CUDA kernel takes contiguous float32, "
+                        f"got {lab.dtype}")
+
+
+def _launch(lab, sentinel, h, w, off, row0, col0, E, kernel_spatial,
+            kernel_intensity, iters, with_drift, return_trajectory):
+    """One launch of the form :func:`form_for` picks on ``lab``, the input
+    plane (see csrc/ms_filter.cu); returns (pos, col, drift2, traj)."""
+    th = tile_rows(E)
+    lib = _lib()
+    dev = lab.device
+    pos = torch.empty((h, w, 2), dtype=lab.dtype, device=dev)
+    col = torch.empty((h, w, 3), dtype=lab.dtype, device=dev)
+    drift2 = (torch.empty((h, w), dtype=lab.dtype, device=dev)
+              if with_drift else None)
+    traj = (torch.empty((iters, h, w, 2), dtype=lab.dtype, device=dev)
+            if return_trajectory else None)
+    with torch.cuda.device(dev):
+        rc = lib.ms_filter_launch(
+            lab.data_ptr(), sentinel.data_ptr(), pos.data_ptr(),
+            col.data_ptr(), 0 if drift2 is None else drift2.data_ptr(),
+            0 if traj is None else traj.data_ptr(), lab.shape[0],
+            lab.shape[1], h, w, off, int(row0), int(col0), E,
+            math.ceil(kernel_spatial), int(iters), th,
+            int(form_for(E) == "wide"), float(kernel_spatial) ** 2,
+            float(kernel_intensity) ** 2,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(lib, "ms_filter", rc)
+    return pos, col, drift2, traj
 
 
 def mean_shift_filter(lab: torch.Tensor, kernel_spatial: int = 20,
                       kernel_intensity: float = 16.0 / 255.0,
-                      iters: int = 8, margin: int | None = None):
-    """``iters`` mean-shift steps; returns (pos (H, W, 2) xy, color (H, W, 3)).
+                      iters: int = 8, margin: int | None = None,
+                      with_drift: bool = False,
+                      return_trajectory: bool = False):
+    """``iters`` mean-shift steps; returns (pos (H, W, 2) xy, color (H, W,
+    3)), then the largest drift of a query before any step (a 0-d tensor,
+    ``with_drift``) and the (iters, H, W, 2) drift after each step
+    (``return_trajectory``), as tpuflow's filter returns them.
 
     CPU tensors take :func:`mean_shift_filter_plain`; a CUDA tensor
     (contiguous float32 (H, W, 3)) takes one launch of the CUDA kernel in
-    the form :func:`form_for` picks, or raises.
+    the form :func:`form_for` picks, the extra outputs included, or raises.
     """
     global LAUNCHES
-    if lab.dim() != 3 or lab.shape[-1] != 3:
-        raise ValueError(f"mean_shift_filter: need (H, W, 3) Lab, got "
-                         f"{tuple(lab.shape)}")
+    _check_lab("mean_shift_filter", lab)
     if lab.device.type == "cpu":
         return mean_shift_filter_plain(lab, kernel_spatial, kernel_intensity,
-                                       iters, margin)
-    if lab.device.type != "cuda":
-        raise ValueError(f"mean_shift_filter: no kernel for {lab.device}")
-    if lab.dtype != torch.float32 or not lab.is_contiguous():
-        raise TypeError("mean_shift_filter: the CUDA kernel takes contiguous "
-                        f"float32, got {lab.dtype}")
+                                       iters, margin, with_drift,
+                                       return_trajectory)
     from tpuflow_torch.segmentation.meanshift import _color_sentinel
 
     E = window(kernel_spatial, margin)
     h, w = lab.shape[:2]
-    th = tile_rows(E)
-    lib = _lib()
-    sentinel = _color_sentinel(lab, kernel_intensity)
-    pos = torch.empty((h, w, 2), dtype=lab.dtype, device=lab.device)
-    col = torch.empty_like(lab)
-    with torch.cuda.device(lab.device):
-        rc = lib.ms_filter_launch(
-            lab.data_ptr(), sentinel.data_ptr(), pos.data_ptr(),
-            col.data_ptr(), h, w, E, math.ceil(kernel_spatial), int(iters),
-            th, int(form_for(E) == "wide"), float(kernel_spatial) ** 2,
-            float(kernel_intensity) ** 2,
-            torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(lib, "ms_filter", rc)
+    out = _launch(lab, _color_sentinel(lab, kernel_intensity), h, w, 0, 0, 0,
+                  E, kernel_spatial, kernel_intensity, iters, with_drift,
+                  return_trajectory)
     LAUNCHES += 1
+    return _extras(*out, with_drift, return_trajectory)
+
+
+def mean_shift_filter_tile_plain(lab_p: torch.Tensor, row0: int, col0: int,
+                                 E: int, kernel_spatial: int = 20,
+                                 kernel_intensity: float = 16.0 / 255.0,
+                                 iters: int = 8):
+    """:func:`mean_shift_filter_tile` in plain PyTorch."""
+    th, tw = lab_p.shape[0] - 2 * E, lab_p.shape[1] - 2 * E
+    pos, col, _, _ = _filter_plain(lab_p.permute(2, 0, 1), th, tw, row0,
+                                   col0, E, kernel_spatial, kernel_intensity,
+                                   iters, False, False)
+    return pos, col
+
+
+def mean_shift_filter_tile(lab_p: torch.Tensor, row0: int, col0: int,
+                           E: int, kernel_spatial: int = 20,
+                           kernel_intensity: float = 16.0 / 255.0,
+                           iters: int = 8):
+    """``iters`` mean-shift steps for the (th, tw) core of one mesh tile.
+
+    ``lab_p`` is the (th + 2E, tw + 2E, 3) Lab tile halo'd by the window E
+    (the neighbouring tiles' pixels, and the colour sentinel outside the
+    frame); (row0, col0) are the frame coordinates of the core's (0, 0).
+    Returns the core's global positions (th, tw, 2) and colours (th, tw,
+    3). A window of E never reads outside the tile, so the launcher's
+    sentinel (the value of a read outside its input plane) is never used:
+    the tile's first element stands in for it. CPU tensors take
+    :func:`mean_shift_filter_tile_plain`; a CUDA tensor (contiguous
+    float32) one launch of the CUDA kernel, or raises.
+    """
+    global LAUNCHES_TILE
+    _check_lab("mean_shift_filter_tile", lab_p)
+    th, tw = lab_p.shape[0] - 2 * E, lab_p.shape[1] - 2 * E
+    if th < 1 or tw < 1:
+        raise ValueError(f"mean_shift_filter_tile: a {lab_p.shape[0]}x"
+                         f"{lab_p.shape[1]} tile has no core inside an "
+                         f"{E}-pixel halo")
+    if lab_p.device.type == "cpu":
+        return mean_shift_filter_tile_plain(lab_p, row0, col0, E,
+                                            kernel_spatial, kernel_intensity,
+                                            iters)
+    pos, col, _, _ = _launch(lab_p, lab_p, th, tw, E, row0, col0, E,
+                             kernel_spatial, kernel_intensity, iters, False,
+                             False)
+    LAUNCHES_TILE += 1
     return pos, col

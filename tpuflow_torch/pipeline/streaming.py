@@ -67,10 +67,9 @@ class SyntheticSource:
             yield ndshift(self.base, (-oy, -ox), order=1)[: self.h, : self.w]
 
 
-def _gray_on(frame, device) -> torch.Tensor:
-    """A numpy frame as a float32 gray image on ``device``."""
-    gray = torch.as_tensor(np.asarray(frame), dtype=torch.float32,
-                           device=device)
+def _gray_on(frame, device, dtype=torch.float32) -> torch.Tensor:
+    """A numpy frame as a gray image of ``dtype`` on ``device``."""
+    gray = torch.as_tensor(np.asarray(frame), dtype=dtype, device=device)
     return rgb_to_gray(gray) if gray.dim() == 3 else gray
 
 
@@ -169,7 +168,8 @@ def bm_flow_stream(
     been dispatched, and the last pair's when the iterable ends. From the
     second pair on the estimate is bidirectional for the middle frame
     (Scratch_MeaningfulMotion.cpp:544-552). ``driver_kwargs`` pass through
-    to the driver. tpuflow's ``prewarm`` (compiling region-count buckets
+    to the driver, ``profile`` and ``mesh`` among them (on a mesh every
+    rank runs the stream over the same frames). tpuflow's ``prewarm`` (compiling region-count buckets
     ahead) is a TPU workaround; this stream has no such argument."""
     tel = get_telemetry()
     state = pending = prev = None
@@ -223,21 +223,23 @@ def feature_tracking_stream(
     state: TrackingState | None = None,
     *,
     device: torch.device | str = "cuda",
+    dtype: torch.dtype = torch.float32,
 ):
     """Yields (gray, points, prev_points, status) as numpy arrays per
     tracked frame (VideoFeaturesOF tracking(), FeaturesOpticalFlow.cpp:
     85-130): seed when at most ``min_track_count`` tracks survive, track
     from the previous frame, keep the accepted tracks (cut to
     ``max_count`` after a re-seed). The corners and the tracking run on
-    ``device``."""
+    ``device`` in ``dtype``: float32 by default, the dtype the sepconv
+    kernel takes on the card; float64 on the CPU is tpuflow's stream."""
     if state is None:
         state = TrackingState()
     tel = get_telemetry()
     prev = None
     if state.prev_gray is not None:
-        prev = _gray_on(state.prev_gray, device)
+        prev = _gray_on(state.prev_gray, device, dtype)
     for i, frame in enumerate(frames):
-        gray = _gray_on(frame, device)
+        gray = _gray_on(frame, device, dtype)
         gray_np = gray.cpu().numpy()
 
         n_active = 0 if state.points is None else len(state.points)

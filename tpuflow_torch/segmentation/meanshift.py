@@ -13,6 +13,9 @@ tensor its plain version runs (:mod:`tpuflow_torch.kernels.ms_filter`).
 The labeling (:func:`_merge_labels`) is irregular graph work on small
 data and runs on the host with numpy and scipy, as tpuflow's oracle path
 does. Everything runs on the device of the Lab tensor it is given.
+:func:`mean_shift_filter_sharded` tiles the filter over a mesh of ranks
+(:mod:`tpuflow_torch.dist`), each tile through the tile entry of the same
+kernel.
 """
 
 from __future__ import annotations
@@ -61,7 +64,9 @@ class SegmentationResult:
 
 def mean_shift_filter(lab: torch.Tensor, kernel_spatial: int = 20,
                       kernel_intensity: float = 16.0 / 255.0,
-                      iters: int = 8, margin: int | None = None):
+                      iters: int = 8, margin: int | None = None,
+                      with_drift: bool = False,
+                      return_trajectory: bool = False):
     """Run ``iters`` mean-shift steps; returns (pos (H, W, 2) xy,
     color (H, W, 3)).
 
@@ -71,16 +76,67 @@ def mean_shift_filter(lab: torch.Tensor, kernel_spatial: int = 20,
     iteration, in row-major order — the function of tpuflow's Pallas
     kernel (``mean_shift_filter_pallas``).
 
+    ``with_drift=True`` also returns the largest |pos - origin| of any
+    query before any step (a 0-d tensor): positions are exact up to the
+    first drift past the margin, so a largest drift within the margin
+    certifies the run (:func:`segment_meanshift`'s ``margin="auto"``).
+    ``return_trajectory=True`` also returns the (iters, H, W, 2) drift
+    after each step. Both ride on the kernel's launch on the card.
+
     tpuflow's default jnp filter sweeps a banded disc instead and shrinks
     iteration 0's window to R. For every query whose drift stays within
     the margin the dropped offsets weigh exactly zero, so the two agree
     bitwise; they differ only for out-of-contract queries (drift >
-    margin), where both windows are truncated. tpuflow's ``margin="auto"``,
-    ``with_drift`` and ``return_trajectory`` are TPU compile and speed
-    devices and are not ported.
+    margin), where both windows are truncated.
     """
     return ms_filter.mean_shift_filter(lab, kernel_spatial, kernel_intensity,
-                                       iters, margin)
+                                       iters, margin, with_drift,
+                                       return_trajectory)
+
+
+def mean_shift_filter_sharded(lab: torch.Tensor, mesh,
+                              kernel_spatial: int = 20,
+                              kernel_intensity: float = 16.0 / 255.0,
+                              iters: int = 8, margin: int | None = None):
+    """:func:`mean_shift_filter` over a (ty, tx) mesh of ranks; returns the
+    full (pos, color) on every rank.
+
+    Every rank takes the full frame (on the mesh's device) and filters its
+    tile: the window reads points within E = R + margin of a query's
+    origin, so the tile halo'd by E (its neighbours' pixels, the colour
+    sentinel outside the frame) makes the whole iteration loop tile-local
+    (tpuflow's ``_ms_sharded_fn``). The sentinel is the largest |Lab| over
+    the tiles (an all-reduce MAX, exact) plus the colour radius + 1, as the
+    single-device filter's. The tiles then gather to every rank; the
+    result is bitwise :func:`mean_shift_filter`'s.
+    """
+    import torch.distributed as dist
+
+    from tpuflow_torch.dist.halo import all_reduce, gather_tiles, tile_of
+
+    h, w = lab.shape[:2]
+    if h % mesh.ty or w % mesh.tx:
+        raise ValueError(f"image {h}x{w} not divisible by mesh "
+                         f"{mesh.ty}x{mesh.tx}")
+    th, tw = h // mesh.ty, w // mesh.tx
+    E = ms_filter.window(kernel_spatial, margin)
+    if E > th or E > tw:
+        raise ValueError("tile smaller than the shift window halo")
+    planes = lab.permute(2, 0, 1)
+    tile = tile_of(planes, mesh)
+    sentinel = all_reduce(tile.abs().max().reshape(1), mesh,
+                          dist.ReduceOp.MAX)[0] + (float(kernel_intensity)
+                                                   + 1.0)
+    row0, col0 = mesh.iy * th, mesh.ix * tw
+    ys = torch.arange(row0 - E, row0 + th + E, device=lab.device)[:, None]
+    xs = torch.arange(col0 - E, col0 + tw + E, device=lab.device)[None, :]
+    outside = (ys < 0) | (ys >= h) | (xs < 0) | (xs >= w)
+    lab_p = torch.where(outside, sentinel, tile_of(planes, mesh, E))
+    pos, col = ms_filter.mean_shift_filter_tile(
+        lab_p.permute(1, 2, 0).contiguous(), row0, col0, E, kernel_spatial,
+        kernel_intensity, iters)
+    return tuple(gather_tiles(f.permute(2, 0, 1).contiguous(), mesh)
+                 .permute(1, 2, 0).contiguous() for f in (pos, col))
 
 
 def _merge_labels(pos: np.ndarray, col: np.ndarray,
@@ -206,8 +262,9 @@ def segment_meanshift_async(
     kernel_intensity: float = 16.0 / 255.0,
     iters: int = 8,
     min_size: int = 16,
-    margin: int | None = None,
+    margin: int | str | None = None,
     scale: int = 1,
+    mesh=None,
 ):
     """:func:`segment_meanshift` split into the device filter, launched
     now, and a zero-argument ``finalize`` that fetches its output and runs
@@ -218,14 +275,40 @@ def segment_meanshift_async(
     ``scale > 1`` segments the stride-``scale`` subsampled frame with the
     spatial kernel and min_size scaled to match, then nearest-replicates
     the labels back (~scale^4 less filter work; not faithful to the
-    reference's full-resolution segmentation)."""
+    reference's full-resolution segmentation). ``margin="auto"`` first
+    filters with the margin R/2 and keeps that run only if its largest
+    drift (``with_drift``, read back here) stays within it, else filters
+    again at the full margin. ``mesh`` runs the filter tiled over the
+    mesh's ranks (:func:`mean_shift_filter_sharded`; single-device
+    ``scale`` and ``margin="auto"`` are refused there, as in tpuflow); every
+    rank labels the same gathered filter output with the same host code,
+    so every rank holds the same labels."""
     h0, w0 = lab.shape[:2]
     if scale > 1:
+        if mesh is not None:
+            raise ValueError("scale > 1 is single-device only")
         lab = lab[::scale, ::scale].contiguous()
         kernel_spatial = max(int(kernel_spatial) // scale, 1)
         min_size = max(int(min_size) // (scale * scale), 1)
-    pos, col = mean_shift_filter(lab, kernel_spatial, float(kernel_intensity),
-                                 iters, margin)
+    R = int(kernel_spatial)
+    if mesh is not None:
+        if margin == "auto":
+            raise ValueError('margin="auto" is single-device only')
+        pos, col = mean_shift_filter_sharded(lab, mesh, kernel_spatial,
+                                             float(kernel_intensity), iters,
+                                             margin)
+    elif margin == "auto" and R > 2:
+        m0 = max(R // 2, 1)
+        pos, col, drift = mean_shift_filter(
+            lab, kernel_spatial, float(kernel_intensity), iters, margin=m0,
+            with_drift=True)
+        if float(drift) > m0:  # host sync: the certificate decides
+            pos, col = mean_shift_filter(lab, kernel_spatial,
+                                         float(kernel_intensity), iters)
+    else:
+        pos, col = mean_shift_filter(
+            lab, kernel_spatial, float(kernel_intensity), iters,
+            None if margin in (None, "auto") else int(margin))
     ready = None
     if pos.is_cuda:
         # Copy the filter's output right behind it into pinned host
@@ -257,11 +340,11 @@ def segment_meanshift(
     kernel_intensity: float = 16.0 / 255.0,
     iters: int = 8,
     min_size: int = 16,
-    margin: int | None = None,
+    margin: int | str | None = None,
     scale: int = 1,
 ) -> SegmentationResult:
     """Full segmentation: the mean-shift filter on ``lab``'s device, then
-    the host labeling. ``margin`` and ``scale``: see
-    :func:`mean_shift_filter` and :func:`segment_meanshift_async`."""
+    the host labeling. ``margin`` (an int, None for ``kernel_spatial``, or
+    ``"auto"``) and ``scale``: see :func:`segment_meanshift_async`."""
     return segment_meanshift_async(lab, kernel_spatial, kernel_intensity,
                                    iters, min_size, margin, scale)()

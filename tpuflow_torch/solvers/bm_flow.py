@@ -21,8 +21,15 @@ Port of :mod:`tpuflow.solvers.bm_flow` (``OpticalFlow_BlockMatching.cpp:
 ``.item()`` at each check, at tpuflow's cadence (after sweeps 1, 65,
 129, ...: 32 per 2048-sweep refine); the affine fit reads its all-done
 flag once every :data:`AFFINE_CHECK_EVERY` iterations; the segmentation's
-labeling runs on the host. Not ported yet (ROADMAP Queue 1): ``mesh`` and
-the fast/turbo profiles' evaluators.
+labeling runs on the host.
+
+``mesh`` (a :class:`tpuflow_torch.dist.Mesh`; every rank calls the driver
+with the same frames) runs the device stages over the mesh's ranks, as
+tpuflow's does: the new frame's mean-shift filter tiled with its halo, the
+searches candidate-parallel (:mod:`tpuflow_torch.dist.bm`), the gated
+refine tiled with fused halos and the affine fit with all-reduced region
+sums (:mod:`tpuflow_torch.dist.bm_refine`). Every rank labels the same
+gathered filter output on its host and returns the same result.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from tpuflow_torch.segmentation.meanshift import SegmentationResult
 from tpuflow_torch.solvers.black_anandan import emit_energy_trace, in_dtype
 from tpuflow_torch.solvers.mestimators import (geman_mcclure_psi,
                                                geman_mcclure_rho)
+from tpuflow_torch.utils import numerics
 from tpuflow_torch.utils.numerics import true_div
 
 LAMBDA_D = 5.0
@@ -54,8 +62,10 @@ LAMBDA_S = 1.0
 #: ``"faithful"`` (== None) keeps the reference's exhaustive search and
 #: over-damped refinement;
 #: ``"quality"`` segments on the stride-2 frame (``seg_scale=2``: more,
-#: finer regions). ``"fast"`` and ``"turbo"`` need the coarse search
-#: evaluator, not ported yet: it refuses them.
+#: finer regions); ``"fast"`` searches the stride-2 candidate subgrid
+#: (``matmul_coarse``) and refines with the analytic sup, a plateau stop
+#: and at most 1024 sweeps; ``"turbo"`` adds the stride-2 segmentation.
+#: On a mesh a profile's ``seg_scale`` is ignored, as in tpuflow.
 PROFILES = {
     "faithful": {},
     "fast": {
@@ -205,7 +215,7 @@ def _neighbor_terms(u, v, labels, sigma_s, gates=None):
     may carry a leading batch axis; ``labels``/``gates`` are (H, W)."""
     if gates is None:
         gates = _region_gates(labels, u.dtype)
-    norm_c = torch.sqrt(u * u + v * v)
+    norm_c = numerics.sqrt(u * u + v * v)
     nx = torch.zeros_like(u)
     ny = torch.zeros_like(v)
     for (dx, dy), gate in zip(_NEIGHBOR_OFFSETS, gates):
@@ -219,7 +229,7 @@ def _neighbor_terms(u, v, labels, sigma_s, gates=None):
 def _neighbor_energy(u, v, labels, sigma_s, gates=None):
     if gates is None:
         gates = _region_gates(labels, u.dtype)
-    norm_c = torch.sqrt(u * u + v * v)
+    norm_c = numerics.sqrt(u * u + v * v)
     E = torch.zeros_like(u)
     for (dx, dy), gate in zip(_NEIGHBOR_OFFSETS, gates):
         un, vn, coeff = _coherence(u, v, norm_c, dx, dy)
@@ -236,14 +246,22 @@ def _gated_sup(gx, gy, lambda_d, lambda_s, sigma_d, sigma_s,
     device. ``"reference"`` divides by sigma^2 as the reference does (an
     over-damped step: the Geman-McClure psi in use has max curvature
     2/sigma); ``"analytic"`` takes the true bound."""
+    return sup_of_max(torch.max(gx * gx), torch.max(gy * gy), lambda_d,
+                      lambda_s, sigma_d, sigma_s, sup_mode)
+
+
+def sup_of_max(gx2, gy2, lambda_d, lambda_s, sigma_d, sigma_s,
+               sup_mode: str = "reference"):
+    """:func:`_gated_sup` from the largest gx^2 and gy^2 (0-d tensors; a
+    mesh reduces them over its tiles first)."""
     if sup_mode == "analytic":
-        return tuple((lambda_d * torch.max(g * g) * (2.0 / sigma_d)
-                      + 4.0 * lambda_s * (2.0 / sigma_s)).to(gx.dtype)
-                     for g in (gx, gy))
+        return tuple((lambda_d * g2 * (2.0 / sigma_d)
+                      + 4.0 * lambda_s * (2.0 / sigma_s)).to(gx2.dtype)
+                     for g2 in (gx2, gy2))
     if sup_mode != "reference":
         raise ValueError(f"unknown sup_mode {sup_mode!r}")
-    return tuple(true_div(lambda_d * torch.max(g * g), sigma_d**2)
-                 + 4.0 * lambda_s / sigma_s**2 for g in (gx, gy))
+    return tuple(true_div(lambda_d * g2, sigma_d**2)
+                 + 4.0 * lambda_s / sigma_s**2 for g2 in (gx2, gy2))
 
 
 def _gated_energy(u, v, gx, gy, it, labels, gates, lambda_d, lambda_s,
@@ -529,7 +547,8 @@ def gradient_method_flow_bidirectional(
 
 def _irls_affine_regions(gx, gy, it, labels, n_regions: int, sigma: float,
                          iter_max: int, error_min_threshold: float,
-                         normalize_steps: bool = False, a0=None):
+                         normalize_steps: bool = False, a0=None,
+                         origin=(0, 0), reduce_sum=None, reduce_max=None):
     """All regions' 6-parameter IRLS at once (IRLS_AffineParametric_region,
     Affine_BlockMatching.cpp:84-116; omega = 1): ``iter_max`` iterations,
     a region frozen once its energy falls below the threshold. Returns
@@ -540,31 +559,41 @@ def _irls_affine_regions(gx, gy, it, labels, n_regions: int, sigma: float,
     :data:`matcher.ACC`, cast back to the fields' dtype), so the stop
     tests and the parameters do not depend on a run's summation order;
     the six basis fields are permuted once, psi and rho every iteration.
-    ``labels``: the (H, W) host label map of ``n_regions`` regions."""
+    ``labels``: the (H, W) host label map of ``n_regions`` regions.
+
+    On a mesh tile (:mod:`tpuflow_torch.dist.bm_refine`) the fields are
+    the tile's, ``origin`` its frame coordinates, and ``reduce_sum`` /
+    ``reduce_max`` reduce the tile's float64 region sums and maxima over
+    the mesh before they are used."""
     h, w = gx.shape
     dt, dev = gx.dtype, gx.device
+    reduce_sum = reduce_sum or (lambda t: t)
+    reduce_max = reduce_max or (lambda t: t)
     labels = np.asarray(labels)
     perm, bounds = matcher.region_reduction_plan(labels, n_regions)
     perm = torch.from_numpy(perm).to(dev)
     bounds = torch.from_numpy(bounds).to(dev)
     lab = torch.from_numpy(labels.astype(np.int64)).to(dev)
-    x = torch.arange(w, dtype=dt, device=dev)[None, :].expand(h, w)
-    y = torch.arange(h, dtype=dt, device=dev)[:, None].expand(h, w)
+    x = (torch.arange(w, dtype=dt, device=dev) + origin[1])[None, :].expand(
+        h, w)
+    y = (torch.arange(h, dtype=dt, device=dev) + origin[0])[:, None].expand(
+        h, w)
     basis = torch.stack([gx, gx * x, gx * y, gy, gy * x, gy * y],
                         dim=-1).reshape(-1, 6)
     basis_sorted = basis[perm]
 
     def seg_sum(f_sorted):  # (N, C) in label order -> (n_regions, C)
-        return matcher._contiguous_range_sums(f_sorted, bounds).to(dt)
+        return reduce_sum(matcher._contiguous_range_sums(f_sorted,
+                                                         bounds)).to(dt)
 
     def sorted_column(f):  # (H, W) -> (N, 1) in label order
         return f.reshape(-1)[perm][:, None]
 
     # sup_i per region: 2 * max_site (basis_i^2) / sigma^2
     # (sup_Error_aa_region); the max is order-free.
-    seg_max = torch.full((n_regions, 6), -math.inf, dtype=dt,
-                         device=dev).scatter_reduce(
-        0, lab.reshape(-1, 1).expand(-1, 6), basis * basis, "amax")
+    seg_max = reduce_max(torch.full((n_regions, 6), -math.inf, dtype=dt,
+                                    device=dev).scatter_reduce(
+        0, lab.reshape(-1, 1).expand(-1, 6), basis * basis, "amax"))
     sup = true_div(2.0 * seg_max, sigma**2)
     tiny = sup.abs() < 1.0e-10
     step = torch.where(tiny, torch.where(sup >= 0, 1.0e10, -1.0e10).to(dt),
@@ -573,7 +602,7 @@ def _irls_affine_regions(gx, gy, it, labels, n_regions: int, sigma: float,
         # tpuflow's stabilized step (not in the reference): dE is a sum
         # over the region while sup is a per-site max, so the reference's
         # omega = 1 step overshoots on large regions; divide by the size.
-        counts = (bounds[1:] - bounds[:-1]).to(dt)
+        counts = reduce_sum(bounds[1:] - bounds[:-1]).to(dt)
         step = step / torch.clamp_min(counts, 1.0)[:, None]
 
     def flow_of(a):
@@ -775,23 +804,23 @@ def optical_flow_block_matching_async(
     stride-``seg_scale`` frame; ``refine_sup_mode``/``refine_plateau_rtol``:
     see :func:`irls_gradient_method`; ``refine_warp=True`` feeds the
     refinement the real BM field instead of the reference's zeros;
-    ``bm_method``: ``"matmul"`` or ``"gather"``; ``blocks``, when a list,
-    receives the gated refine's launch count (0 in mode AFFINE). ``mode``
+    ``bm_method``: one of :data:`matcher.METHODS`; ``blocks``, when a
+    list, receives the gated refine's launch count (0 in mode AFFINE; on a
+    mesh, its fused blocks). ``mode``
     ``MODE_OUTPUT_AFFINE_BLOCKMATCHING`` refines each direction with
     :func:`affine_parametric_flow` under the real BM field (at most 256
     iterations; ``affine_normalize_steps`` picks its step) instead of the
-    gated gradient method. ``mesh`` and the fast/turbo profiles raise
-    ``NotImplementedError`` (ROADMAP Queue 1).
+    gated gradient method. ``mesh`` runs every device stage over the
+    mesh's ranks on its device (``device`` is then the mesh's; see the
+    module docstring); as in tpuflow, the first frame's segmentation runs
+    on each rank alone, and the sharded refine checks its energy at the
+    fused-block cadence (sweeps 64, 128, ...).
 
     Returns ``(finalize, state)``; ``finalize()`` fetches the composed
     fields as a :class:`BMFlowOutput`. Flow semantics: inverse flow,
     vectors point from current-frame pixels to the reference frame, with
     t = -1 (previous) or +1 (next).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the multi-device flagship is not ported to tpuflow_torch "
-            "yet (ROADMAP.md Queue 1)")
     if profile is not None:
         if profile not in PROFILES:
             raise ValueError(f"unknown profile {profile!r}; expected one "
@@ -801,20 +830,21 @@ def optical_flow_block_matching_async(
         refine_sup_mode = knobs.get("refine_sup_mode", refine_sup_mode)
         refine_plateau_rtol = knobs.get("refine_plateau_rtol",
                                         refine_plateau_rtol)
-        seg_scale = knobs.get("seg_scale", seg_scale)
+        if mesh is None:
+            seg_scale = knobs.get("seg_scale", seg_scale)
         if "refine_iter_max" in knobs:
             iter_max = min(iter_max, knobs["refine_iter_max"])
     matcher.validate_method(bm_method)
-    device = torch.device(device)
+    device = torch.device(device if mesh is None else mesh.device)
     if param is None:
         param = MultipleMotionParam()
     if state is None:
         state = BMFlowState()
     seg_args = (kernel_spatial, kernel_intensity)
 
-    def segment_async(lab):
-        return meanshift.segment_meanshift_async(lab, *seg_args,
-                                                 scale=int(seg_scale))
+    def segment_async(lab, on_mesh=None):
+        return meanshift.segment_meanshift_async(
+            lab, *seg_args, scale=int(seg_scale), mesh=on_mesh)
 
     if not state.lab_frames:
         it_norm, it_lab = _to_lab(np.asarray(it_rgb), max_int)
@@ -822,7 +852,20 @@ def optical_flow_block_matching_async(
         state.push(it_lab, it_norm.numpy(), segment_async(it_lab)())
     itp1_norm, itp1_lab = _to_lab(np.asarray(itp1_rgb), max_int)
     itp1_lab = itp1_lab.to(device)
-    finalize_seg = segment_async(itp1_lab)
+    finalize_seg = segment_async(itp1_lab, mesh)
+    if mesh is None:
+        match_one = matcher._match_device
+        match_two = matcher._match_device_bidirectional
+    else:
+        from tpuflow_torch.dist import bm as dist_bm, bm_refine
+
+        def match_one(cur, ref, labels, n, *args):
+            return dist_bm._match_device_sharded(cur, ref, labels, n, mesh,
+                                                 *args)
+
+        def match_two(cur, refp, refn, labels, n, *args):
+            return dist_bm._match_device_sharded_bidirectional(
+                cur, refp, refn, labels, n, mesh, *args)
 
     # With the new frame not yet pushed: state[0] = the middle frame,
     # state[1] = the one before it (OpticalFlow_BlockMatching.cpp:84-93).
@@ -832,7 +875,7 @@ def optical_flow_block_matching_async(
         seg = state.segmentations[0]
         ref_prev = state.lab_frames[1]
         ref_next = itp1_lab
-        bm_dev = list(matcher._match_device_bidirectional(
+        bm_dev = list(match_two(
             interest_lab, ref_prev, ref_next, seg.labels, seg.n_regions,
             search_range, 1.0, 0.5, subpixel_scale, 16, bm_method))
         # The search is queued: label the new frame while the card works.
@@ -842,7 +885,7 @@ def optical_flow_block_matching_async(
         seg_new = seg = finalize_seg()
         interest_lab = itp1_lab
         ref_prev = state.lab_frames[0]
-        bm_dev = [matcher._match_device(
+        bm_dev = [match_one(
             interest_lab, ref_prev, seg.labels, seg.n_regions, search_range,
             1.0, 0.5, subpixel_scale, 16, bm_method)]
 
@@ -860,18 +903,33 @@ def optical_flow_block_matching_async(
         # AffineParametric receives the real per-pixel BM field: the
         # reference zeroes MV only in the gradient branch
         # (OpticalFlow_BlockMatching.cpp:278-304). One fit a direction.
+        affine_kw = dict(iter_max=min(iter_max, 256),
+                         error_min_threshold=param.error_min_threshold,
+                         normalize_steps=affine_normalize_steps)
+        if mesh is not None:
+            # The search's geometry bounds |MV| (the subpixel step adds
+            # less than 1 px): the warp halo needs no host sync.
+            affine_kw.update(mesh=mesh,
+                             max_displacement=search_range // 2 + 1)
+        fit = (affine_parametric_flow if mesh is None
+               else bm_refine.affine_parametric_flow_sharded)
         refined = []
         for ref, bm in zip((ref_prev, ref_next) if bidirectional
                            else (ref_prev,), bm_dev):
             mv = mv_of(bm[0])
-            _, u, v = affine_parametric_flow(
-                ref, interest_lab, mv[..., 0], mv[..., 1], seg.labels,
-                seg.n_regions, iter_max=min(iter_max, 256),
-                error_min_threshold=param.error_min_threshold,
-                normalize_steps=affine_normalize_steps)
+            _, u, v = fit(ref, interest_lab, mv[..., 0], mv[..., 1],
+                          seg.labels, seg.n_regions, **affine_kw)
             refined.append((u, v))
         if blocks is not None:
             blocks.append(0)
+    elif mesh is not None:
+        mvs = ([mv_of(bm[0]) for bm in bm_dev] if refine_warp else None)
+        refs = [ref_prev, ref_next] if bidirectional else [ref_prev]
+        pairs, trace = bm_refine.gradient_method_flow_sharded_bidirectional(
+            refs, interest_lab, seg.labels, mesh, mvs=mvs, **refine_kw)
+        for row in trace:  # E(n) at sweeps 0, 64, ... as tpuflow records it
+            emit_energy_trace(0, row, CHECK_EVERY, 0)
+        refined = pairs
     elif bidirectional:
         refined = gradient_method_flow_bidirectional(
             [ref_prev, ref_next], interest_lab, labels_t,

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -14,6 +15,19 @@ def true_div(x: torch.Tensor, s: float) -> torch.Tensor:
     keeps both devices on the IEEE division.
     """
     return x / torch.full((), s, dtype=x.dtype, device=x.device)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root on every device.
+
+    PyTorch's vectorized CPU ``sqrt`` is not correctly rounded: about 0.6%
+    of float64 (and 0.7% of float32) elements come out an ulp off, where
+    the card's ``sqrt`` (and XLA's) rounds correctly. On the CPU this takes
+    numpy's, which is; on the card ``torch.sqrt``.
+    """
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.asarray(np.sqrt(x.detach().numpy())))
+    return torch.sqrt(x)
 
 
 def warm_cpu_sqrt() -> None:
