@@ -17,7 +17,11 @@ also takes (chip_smoke.BLUR_AB), through the wrapper alone, or
 ``sync_cadence``: the three loops that read a stop flag back once per
 block of steps, each timed at several block lengths (CADENCES), or
 ``flagship_pairs``: the flagship's default pairs at 376x1240, ms per
-pair over FLAGSHIP_ROUNDS rounds after a warm-up round.
+pair over FLAGSHIP_ROUNDS rounds after a warm-up round, or
+``lab_threads``: the flagship's host Lab conversion at the default torch
+thread count and at one thread, or ``demo_split``: the HS demo's stages
+timed apart and one profiler frame of each demo (the demos need a
+checkout that has them).
 
 Without ``--repo`` it first runs chip_smoke.py's build phase, so the rows
 log blocks per SM and ptxas's registers and spills. With ``--repo`` the
@@ -165,9 +169,98 @@ def flagship_pairs(cs, dev) -> None:
            card_ms_pair2_bidirectional=[t[1] for t in times])
 
 
+LAB_ROUNDS = 5
+
+
+def lab_threads(cs, dev) -> None:
+    """bm_flow._to_lab on the flagship's 376x1240 middle frame, host clock,
+    at the process's default torch thread count and at one thread in
+    turns: after each switch of the count, the first call (it pays for
+    the switch) and the call after it, one warm-up round, then LAB_ROUNDS
+    rounds; the pixels whose Lab differs between the two counts."""
+    import torch
+
+    from tpuflow_torch.solvers import bm_flow
+
+    frame = cs.voronoi_frames()[0][1]
+    default = torch.get_num_threads()
+    ms = {(n, k): [] for n in (default, 1) for k in ("first", "next")}
+    labs = {}
+    try:
+        for r in range(LAB_ROUNDS + 1):
+            for n in (default, 1):
+                torch.set_num_threads(n)
+                for k in ("first", "next"):
+                    t0 = time.perf_counter()
+                    labs[n] = bm_flow._to_lab(frame, 255.0)[1]
+                    if r:
+                        ms[n, k].append(1e3 * (time.perf_counter() - t0))
+    finally:
+        torch.set_num_threads(default)
+    d = (labs[default] - labs[1]).abs()
+    cs.log("rows", lab="_to_lab", shape=list(frame.shape[:2]),
+           default_threads=default,
+           **{f"ms_{'default_threads' if n == default else 'one_thread'}_"
+              f"{k}": v for (n, k), v in ms.items()},
+           pixels_differing=int((d.amax(-1) > 0).sum()),
+           max_abs_d=float(d.max()))
+
+
+def demo_split(cs, dev) -> None:
+    """The HS demo at chip_smoke.py's DEMO_SHAPE on the card, its stages
+    timed apart on the host clock through the calls the demo makes (the
+    two frame reads with the gray conversion, the solve with its copy to
+    the host, the two matrix dumps, the quiver, the PNG), three times
+    after a warm-up run of every demo; then each demo call under one
+    torch.profiler frame (the card's busy time, idle share, top ops)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpuflow_torch.core.io import write_image, write_matrix_txt
+    from tpuflow_torch.pipeline import demos
+    from tpuflow_torch.solvers import horn_schunck
+    from tpuflow_torch.viz.quiver import plot_quiver
+
+    names = ("read", "solve", "matrix_dumps", "quiver", "png")
+    with tempfile.TemporaryDirectory(prefix="tpuflow_demo_split_") as tmp:
+        tmp = Path(tmp)
+        files = cs.write_demo_files(tmp)
+        runs = cs.demo_runs(files, tmp, dev)
+        for fn, _ in runs.values():
+            fn()
+
+        def stages():
+            t = [time.perf_counter()]
+            prev_raw, _, g0, g1 = demos._load_gray_pair(*files[".pgm"])
+            t.append(time.perf_counter())
+            u, v = demos._host(*horn_schunck(
+                *demos._on(dev, torch.float32, g0, g1),
+                cs.HS_WINDOW, cs.HS_ITERS, cs.HS_ALPHA))
+            t.append(time.perf_counter())
+            write_matrix_txt(tmp / "split_uMatrixHS.txt", u, "u matrix")
+            write_matrix_txt(tmp / "split_vMatrixHS.txt", v, "v matrix")
+            t.append(time.perf_counter())
+            quiver = plot_quiver(prev_raw, u, v, delta=20, scale=20.0,
+                                 outlier=5)
+            t.append(time.perf_counter())
+            write_image(tmp / "split_hsbresenhamLineFlow.png", quiver)
+            t.append(time.perf_counter())
+            return 1e3 * np.diff(t)
+
+        rows = [stages() for _ in range(3)]
+        cs.log("demos", demo="hs", split="stages", shape=cs.DEMO_SHAPE,
+               **{f"{n}_ms": [float(r[i]) for r in rows]
+                  for i, n in enumerate(names)})
+        for name, (fn, _) in runs.items():
+            cs.profile_frame("demos", fn, top=4, demo=name)
+
+
 SPECIAL = {"fb_profiled": fb_profiled, "blur_ab": blur_ab,
            "lk_affine": lk_affine, "sync_cadence": sync_cadence,
-           "flagship_pairs": flagship_pairs}
+           "flagship_pairs": flagship_pairs, "lab_threads": lab_threads,
+           "demo_split": demo_split}
 
 
 def main() -> None:

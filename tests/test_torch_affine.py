@@ -165,22 +165,6 @@ def _both(inputs, dtype, **kw):
     return got, want
 
 
-@pytest.mark.parametrize("dtype,atol", [(np.float64, ATOL),
-                                        (np.float32, ATOL_F32)])
-@pytest.mark.parametrize("warm", [False, True])
-@pytest.mark.parametrize("threshold", [1e-6, 40.0])
-def test_affine_parametric_flow_matches(region_inputs, dtype, atol, warm,
-                                        threshold):
-    (a, u, v), (aj, uj, vj) = _both(
-        region_inputs, dtype, warm=warm, iter_max=200, normalize_steps=True,
-        error_min_threshold=threshold)
-    assert a.shape == (N_REGIONS, 6) and u.dtype == torch.from_numpy(
-        np.zeros(1, dtype)).dtype
-    _close(u.numpy(), uj, atol)
-    _close(v.numpy(), vj, atol)
-    _close(a.numpy(), aj, atol)
-
-
 def test_affine_regions_stop_mid_run(region_inputs):
     """At threshold 40 some regions stop after more than one iteration
     and before the last: their fields differ from both runs."""

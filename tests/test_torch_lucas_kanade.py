@@ -119,19 +119,6 @@ def test_track_points_flat_window_status():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("every", [1, 3, 1000])
-def test_track_points_check_cadence_is_invisible(pair, monkeypatch, every):
-    """Reading the done mask every step, every 3 or never gives the same
-    iterate: a done point is frozen."""
-    prev, nxt = pair
-    pts = _grid_points()
-    args = (torch.from_numpy(prev), torch.from_numpy(nxt), pts)
-    want = tl.track_points(*args)
-    monkeypatch.setattr(tl, "DONE_CHECK_EVERY", every)
-    got = tl.track_points(*args)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-
-
 def test_accept_tracked_point_matches():
     rng = np.random.default_rng(4)
     old = rng.uniform(0, 50, (64, 2))

@@ -27,20 +27,34 @@ for name in names:
     importlib.import_module(name)
 from tpuflow_torch.kernels import _build
 assert _build.load.cache_info().currsize == 0, "a kernel was loaded"
+from tpuflow_torch import native
+assert native.load_library.cache_info().currsize == 0, "g++ library loaded"
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "tpuflow"))
+             if m.split(".")[0] in ("jax", "jaxlib", "tpuflow", "PIL", "cv2"))
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
+
+# Modules of the I/O, demo and sharded-Farneback slice; each must be among
+# the modules the import check walks.
+SLICE_MODULES = ("tpuflow_torch.core.io", "tpuflow_torch.core.errors",
+                 "tpuflow_torch.native", "tpuflow_torch.pipeline.demos",
+                 "tpuflow_torch.pipeline.writers", "tpuflow_torch.viz",
+                 "tpuflow_torch.viz.colorwheel", "tpuflow_torch.viz.quiver",
+                 "tpuflow_torch.viz.plot2d", "tpuflow_torch.viz.plot3d",
+                 "tpuflow_torch.dist.farneback")
 
 
 def test_imports_no_jax_and_builds_nothing():
-    """Every module imports in a fresh interpreter without pulling in jax
-    or tpuflow and without starting nvcc (or any other process)."""
+    """Every module imports in a fresh interpreter without pulling in jax,
+    tpuflow, PIL or cv2 and without starting nvcc, g++ (or any other
+    process)."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 14
+    names = proc.stdout.split()
+    assert len(names) >= 14
+    assert [m for m in SLICE_MODULES if m not in names] == []
 
 
 def _non_default_values():

@@ -8,12 +8,16 @@
   [0, 1]). Consumers that need the standard CIE scale the reference's
   constants assume multiply by :data:`LAB_SCALE`.
 
-Everything is elementwise on the tensor's device and dtype.
+Everything is elementwise on the tensor's device and dtype. The ``pow``
+branches go through :func:`~tpuflow_torch.utils.numerics.pow_fixed_split`,
+so a CPU result is the same bits at every torch thread count.
 """
 
 from __future__ import annotations
 
 import torch
+
+from tpuflow_torch.utils.numerics import pow_fixed_split
 
 #: Factor between this module's normalized Lab ([0, 1] L) and the
 #: standard CIE scale the reference's constants assume.
@@ -44,13 +48,14 @@ def gray_to_rgb(gray: torch.Tensor) -> torch.Tensor:
 
 
 def _srgb_linearize(c: torch.Tensor) -> torch.Tensor:
-    return torch.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
+    return torch.where(c <= 0.04045, c / 12.92,
+                       pow_fixed_split((c + 0.055) / 1.055, 2.4))
 
 
 def _lab_f(t: torch.Tensor) -> torch.Tensor:
     delta = 6.0 / 29.0
     # Cube root of the positive branch; the other branch covers t <= delta^3.
-    cbrt = t.abs() ** (1.0 / 3.0)
+    cbrt = pow_fixed_split(t.abs(), 1.0 / 3.0)
     return torch.where(t > delta**3, cbrt, t / (3.0 * delta**2) + 4.0 / 29.0)
 
 

@@ -6,9 +6,10 @@ ranks that share one card). :func:`run_on_mesh` spawns the ranks and runs a
 function on each. The flagship's sharded stages are here too: the
 candidate-parallel search (``dist/bm.py``), the tiled gated refine and
 affine fit (``dist/bm_refine.py``); its tiled mean-shift filter is
-``tpuflow_torch.segmentation.meanshift.mean_shift_filter_sharded``. Not
-ported yet (ROADMAP.md, Queue 1): ``farneback_sharded`` and the sharded
-ops of ``dist/ops.py``.
+``tpuflow_torch.segmentation.meanshift.mean_shift_filter_sharded``.
+``farneback_sharded`` (``dist/farneback.py``) tiles Farneback's finest
+level on the poly-expansion and blur-solve kernels. Not ported yet
+(ROADMAP.md, Queue 1): the sharded ops of ``dist/ops.py``.
 """
 
 from tpuflow_torch.dist.mesh import Mesh, make_mesh, mesh_factor, run_on_mesh  # noqa: F401
@@ -32,4 +33,8 @@ from tpuflow_torch.dist.bm_refine import (  # noqa: F401
     affine_parametric_flow_sharded,
     gradient_method_flow_sharded,
     gradient_method_flow_sharded_bidirectional,
+)
+from tpuflow_torch.dist.farneback import (  # noqa: F401
+    farneback_sharded,
+    halo_pad_2d_clamp,
 )

@@ -15,7 +15,11 @@
   goodFeaturesToTrack seeding (maxCount 500, quality 0.01, minDist 10),
   pyramidal LK tracking, accept rule ``status && |dx|+|dy| > 2``,
   re-seed when <= 10 tracks survive.
-- :class:`SyntheticSource` — a moving smoothed-noise texture.
+- Frame sources: :class:`ImageSequenceSource` (a printf pattern over
+  image files, binary PNM optionally decoded ahead on the native
+  library's worker threads), :func:`video_source` (OpenCV, imported at
+  first use) and :class:`SyntheticSource` (a moving smoothed-noise
+  texture).
 
 The streams take numpy frames, as tpuflow's do, and run on ``device``:
 the card unless the caller passes ``device="cpu"``. Frames go there as
@@ -27,11 +31,13 @@ are explicit dataclasses (checkpoint and resume).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Iterable, Iterator
 
 import numpy as np
 import torch
 
+from tpuflow_torch.core import io as tio
 from tpuflow_torch.core.color import rgb_to_gray
 from tpuflow_torch.core.resample import resize_zero_order_hold
 from tpuflow_torch.solvers.bm_flow import optical_flow_block_matching_async
@@ -40,6 +46,56 @@ from tpuflow_torch.solvers.lucas_kanade import (accept_tracked_point,
                                                 good_features_to_track,
                                                 track_points)
 from tpuflow_torch.utils.telemetry import get_telemetry
+
+
+class ImageSequenceSource:
+    """Frames from a printf-style filename pattern (``%0Nd``).
+
+    ``prefetch=True`` decodes a binary PNM sequence ahead on native worker
+    threads (:class:`tpuflow_torch.native.FramePrefetcher`), so the device
+    never waits on disk; other formats stream synchronously.
+    """
+
+    def __init__(self, pattern: str, start: int, end: int,
+                 prefetch: bool = False, threads: int = 2):
+        self.pattern = pattern
+        self.start = start
+        self.end = end
+        self.prefetch = prefetch
+        self.threads = threads
+
+    def _paths(self):
+        return [tio.expand_frame_pattern(self.pattern, num)
+                for num in range(self.start, self.end + 1)]
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        paths = self._paths()
+        if self.prefetch and all(
+                str(p).lower().endswith((".pgm", ".ppm")) for p in paths):
+            from tpuflow_torch.native import FramePrefetcher
+
+            with FramePrefetcher(paths, threads=self.threads) as pf:
+                for frame, _ in pf:
+                    yield frame
+            return
+        for p in paths:
+            frame, _ = tio.read_image(p)
+            yield frame
+
+
+def video_source(path: str | Path) -> Iterator[np.ndarray]:
+    """RGB frames of a video file, read through OpenCV."""
+    import cv2
+
+    cap = cv2.VideoCapture(str(path))
+    try:
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            yield frame[..., ::-1]  # BGR -> RGB
+    finally:
+        cap.release()
 
 
 class SyntheticSource:

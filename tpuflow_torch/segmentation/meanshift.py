@@ -11,8 +11,10 @@ The filter (:func:`mean_shift_filter`) is the device half: on a CUDA
 tensor one launch of ``csrc/ms_filter.cu`` runs every iteration, on a CPU
 tensor its plain version runs (:mod:`tpuflow_torch.kernels.ms_filter`).
 The labeling (:func:`_merge_labels`) is irregular graph work on small
-data and runs on the host with numpy and scipy, as tpuflow's oracle path
-does. Everything runs on the device of the Lab tensor it is given.
+data and runs on the host in the native C++ labeler
+(:mod:`tpuflow_torch.native`), as tpuflow's does; its numpy and scipy
+body stays as :func:`_merge_labels_plain`. The filter runs on the device
+of the Lab tensor it is given.
 :func:`mean_shift_filter_sharded` tiles the filter over a mesh of ranks
 (:mod:`tpuflow_torch.dist`), each tile through the tile entry of the same
 kernel.
@@ -144,8 +146,22 @@ def _merge_labels(pos: np.ndarray, col: np.ndarray,
                   min_size: int) -> tuple[np.ndarray, int]:
     """Host-side region formation: join 4-adjacent pixels whose modes are
     within half a kernel, then absorb regions smaller than min_size into
-    their most-similar touching neighbour (tpuflow's ``_merge_labels_py``;
-    its native C++ labeler is not ported)."""
+    their most-similar touching neighbour.
+
+    Runs the native C++ union-find labeler
+    (:func:`tpuflow_torch.native.label_regions`, tpuflow's
+    ``tf_label_regions``), bit-identical to :func:`_merge_labels_plain`."""
+    from tpuflow_torch import native
+
+    return native.label_regions(pos, col, kernel_spatial, kernel_intensity,
+                                min_size)
+
+
+def _merge_labels_plain(pos: np.ndarray, col: np.ndarray,
+                        kernel_spatial: float, kernel_intensity: float,
+                        min_size: int) -> tuple[np.ndarray, int]:
+    """Python :func:`_merge_labels` (tpuflow's ``_merge_labels_py``), the
+    native labeler's plain version."""
     from scipy.sparse import coo_matrix
     from scipy.sparse.csgraph import connected_components
 

@@ -757,7 +757,9 @@ def _quantize_colors(rgb_norm: np.ndarray,
 def _to_lab(rgb: np.ndarray, max_int: float):
     """Normalized RGB and Lab, float32, computed on the host: the card's
     pow differs from the CPU's in the last bit, and the segmentation
-    thresholds Lab distances, so both devices segment the same bits."""
+    thresholds Lab distances, so both devices segment the same bits. The
+    conversion's bits do not depend on the torch thread count (a mesh rank
+    runs one thread): see ``numerics.pow_fixed_split``."""
     if rgb.ndim == 2:
         rgb = np.stack([rgb] * 3, axis=-1)
     norm = true_div(torch.from_numpy(np.asarray(rgb, np.float32)), max_int)

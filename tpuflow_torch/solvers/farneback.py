@@ -64,6 +64,16 @@ def _poly_exp_matrices(n: int, sigma: float) -> tuple[np.ndarray, np.ndarray]:
     return g, np.linalg.inv(G)
 
 
+def poly_taps(poly_n: int, poly_sigma: float):
+    """The taps g, g*x, g*x^2 and the five G^-1 rows (the last halved: a12
+    = r5/2) that ``fb_poly_expansion`` takes."""
+    g, ginv = _poly_exp_matrices(poly_n, poly_sigma)
+    xs = np.arange(-poly_n, poly_n + 1, dtype=np.float64)
+    ginv_rows = ginv[1:6].copy()
+    ginv_rows[4] *= 0.5  # the a12 = r5/2 halving
+    return g, g * xs, g * xs * xs, ginv_rows
+
+
 def poly_expansion(img: torch.Tensor, poly_n: int, poly_sigma: float,
                    use_kernel: bool | None = None):
     """Quadratic expansion coefficients (b1, b2, a11, a22, a12) per pixel.
@@ -74,16 +84,14 @@ def poly_expansion(img: torch.Tensor, poly_n: int, poly_sigma: float,
     CUDA, its plain version on the CPU); False the six separable moments.
     """
     n = poly_n
+    if use_kernel is None or use_kernel:
+        padded = bd.pad2d(img, n, bd.CLAMP)
+        return fb_poly_expansion(padded, *poly_taps(n, poly_sigma))
+
     g, ginv = _poly_exp_matrices(n, poly_sigma)
     xs = np.arange(-n, n + 1, dtype=np.float64)
     gx = g * xs
     gxx = g * xs * xs
-
-    if use_kernel is None or use_kernel:
-        ginv_rows = ginv[1:6].copy()
-        ginv_rows[4] *= 0.5  # the a12 = r5/2 halving
-        padded = bd.pad2d(img, n, bd.CLAMP)
-        return fb_poly_expansion(padded, g, gx, gxx, ginv_rows)
 
     def m(ky, kx):
         return sep_conv2d(img, kx, ky, border=bd.CLAMP)
@@ -100,43 +108,60 @@ def poly_expansion(img: torch.Tensor, poly_n: int, poly_sigma: float,
     return b1, b2, a11, a22, r5 * 0.5
 
 
-def _bilinear_all(fields, xq: torch.Tensor, yq: torch.Tensor):
-    """Bilinear-sample each (H, W) field at float (xq, yq), the four
-    corners' indices clamped to the frame."""
-    h, w = xq.shape
+def bilinear(flat: torch.Tensor, pitch: int, xq: torch.Tensor,
+             yq: torch.Tensor, col, row):
+    """Bilinear-sample the (C, rows * pitch) stack ``flat`` at float (xq,
+    yq); ``col`` and ``row`` map a corner's integer x and y to its column
+    and row in the stack (where the clamping happens)."""
     x0f = torch.floor(xq)
     y0f = torch.floor(yq)
     fx = xq - x0f
     fy = yq - y0f
     x0 = x0f.long()
     y0 = y0f.long()
-    xa, xb = x0.clamp(0, w - 1), (x0 + 1).clamp(0, w - 1)
-    ya, yb = y0.clamp(0, h - 1), (y0 + 1).clamp(0, h - 1)
-    flat = torch.stack(list(fields)).reshape(len(fields), h * w)
-    s00 = flat[:, ya * w + xa]
-    s01 = flat[:, ya * w + xb]
-    s10 = flat[:, yb * w + xa]
-    s11 = flat[:, yb * w + xb]
+    xa, xb = col(x0), col(x0 + 1)
+    ya, yb = row(y0), row(y0 + 1)
+    s00 = flat[:, ya * pitch + xa]
+    s01 = flat[:, ya * pitch + xb]
+    s10 = flat[:, yb * pitch + xa]
+    s11 = flat[:, yb * pitch + xb]
     out = ((1 - fx) * (1 - fy) * s00 + fx * (1 - fy) * s01
            + (1 - fx) * fy * s10 + fx * fy * s11)
     return list(out.unbind(0))
 
 
+def _bilinear_all(fields, xq: torch.Tensor, yq: torch.Tensor):
+    """Bilinear-sample each (H, W) field at float (xq, yq), the four
+    corners' indices clamped to the frame."""
+    h, w = xq.shape
+    flat = torch.stack(list(fields)).reshape(len(fields), h * w)
+    return bilinear(flat, w, xq, yq, lambda x: x.clamp(0, w - 1),
+                    lambda y: y.clamp(0, h - 1))
+
+
 def update_matrices(R1, R2, u: torch.Tensor, v: torch.Tensor,
-                    zero_flow: bool = False) -> torch.Tensor:
+                    zero_flow: bool = False, origin=(0, 0), frame=None,
+                    sample=None) -> torch.Tensor:
     """The 5-channel normal-equation field M (OpenCV
     FarnebackUpdateMatrices): averaged A, flow-compensated db, border
     down-weighting. ``zero_flow=True`` is the first update at a level
     whose flow is all zeros: the warp is the identity and is skipped.
+
+    On a tile of a larger frame (``dist.farneback_sharded``), ``origin``
+    is the tile's (row, column) in the frame, ``frame`` the frame's (H, W)
+    and ``sample(R2, xq, yq)`` the warp at frame coordinates; the defaults
+    are the whole frame and :func:`_bilinear_all`.
     """
     b1_1, b2_1, a11_1, a22_1, a12_1 = R1
     h, w = u.shape
-    xs = torch.arange(w, dtype=u.dtype, device=u.device)[None, :]
-    ys = torch.arange(h, dtype=u.dtype, device=u.device)[:, None]
+    row0, col0 = origin
+    fh, fw = (h, w) if frame is None else frame
+    xs = torch.arange(col0, col0 + w, dtype=u.dtype, device=u.device)[None, :]
+    ys = torch.arange(row0, row0 + h, dtype=u.dtype, device=u.device)[:, None]
     if not zero_flow:
         xq = xs + u
         yq = ys + v
-        R2 = _bilinear_all(R2, xq, yq)
+        R2 = (_bilinear_all if sample is None else sample)(R2, xq, yq)
     b1_2, b2_2, a11_2, a22_2, a12_2 = R2
     a11 = (a11_1 + a11_2) * 0.5
     a12 = (a12_1 + a12_2) * 0.5
@@ -144,7 +169,7 @@ def update_matrices(R1, R2, u: torch.Tensor, v: torch.Tensor,
     db1 = (b1_1 - b1_2) * 0.5
     db2 = (b2_1 - b2_2) * 0.5
     if not zero_flow:
-        inb = (xq >= 0) & (xq < w) & (yq >= 0) & (yq < h)
+        inb = (xq >= 0) & (xq < fw) & (yq >= 0) & (yq < fh)
         # OpenCV: where the warped point leaves the image, A is halved
         # (only frame-1 coefficients) and db is zeroed out of the average.
         a11 = torch.where(inb, a11, a11_1 * 0.5)
@@ -156,8 +181,8 @@ def update_matrices(R1, R2, u: torch.Tensor, v: torch.Tensor,
         db2 = db2 + a12 * u + a22 * v
 
     # Border scale: linear ramp from the image edge over _BORDER pixels.
-    dist = torch.minimum(torch.minimum(xs, w - 1 - xs),
-                         torch.minimum(ys, h - 1 - ys))
+    dist = torch.minimum(torch.minimum(xs, fw - 1 - xs),
+                         torch.minimum(ys, fh - 1 - ys))
     scale = true_div(dist + 1.0, _BORDER + 1.0).clamp(0.0, 1.0)
     a11, a12, a22 = a11 * scale, a12 * scale, a22 * scale
     db1, db2 = db1 * scale, db2 * scale
@@ -215,10 +240,14 @@ def _blur_solve(M: torch.Tensor, winsize: int, gaussian: bool,
 
 def _farneback_impl(prev, nxt, u0, v0, pyr_scale, levels, winsize,
                     iterations, poly_n, poly_sigma, gaussian,
-                    use_poly_kernel=None, use_blur_kernel=None):
+                    use_poly_kernel=None, use_blur_kernel=None, min_level=0):
+    """The coarse-to-fine loop. ``min_level > 0`` stops it early and
+    returns the flow at that level's resolution: ``farneback_sharded``
+    runs levels ``levels-1..1`` replicated through this loop, then tiles
+    only the finest level (tpuflow's ``min_level``)."""
     h, w = prev.shape
     u = v = None
-    for k in range(levels - 1, -1, -1):
+    for k in range(levels - 1, min_level - 1, -1):
         scale = pyr_scale**k
         wl = int(round(w * scale))
         hl = int(round(h * scale))

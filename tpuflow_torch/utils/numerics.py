@@ -40,3 +40,27 @@ def warm_cpu_sqrt() -> None:
     before they run.
     """
     torch.sqrt(torch.ones(1 << 16, dtype=torch.float64))
+
+
+#: Elements per CPU ``pow`` call in :func:`pow_fixed_split`: below
+#: PyTorch's intra-op grain size (32768), so each call runs on one thread,
+#: and a multiple of every vector width, so no call but the last has a
+#: scalar tail.
+POW_CHUNK = 16384
+
+
+def pow_fixed_split(x: torch.Tensor, p: float) -> torch.Tensor:
+    """``x ** p`` whose CPU result does not depend on the thread count.
+
+    PyTorch's vectorized CPU loops send the last few elements of each
+    thread's share through the scalar routine, and ``pow``'s vector and
+    scalar forms round apart in the last bit, so the result depends on how
+    the work was split, and so on the thread count. Here the CPU work is
+    split at fixed points instead (POW_CHUNK elements a call): the result
+    is the same bits as one thread's at every count, and no process-wide
+    setting changes. On the card this is ``x ** p``.
+    """
+    if x.device.type != "cpu" or x.numel() <= POW_CHUNK:
+        return x ** p
+    flat = x.contiguous().view(-1)
+    return torch.cat([c ** p for c in flat.split(POW_CHUNK)]).view(x.shape)

@@ -1,14 +1,17 @@
-"""Structured telemetry: the IRLS energy trace (port of the part of
-:mod:`tpuflow.utils.telemetry` the Black-Anandan solvers use).
+"""Structured telemetry (port of :mod:`tpuflow.utils.telemetry`).
 
 - :class:`Telemetry` — JSON-lines event sink, off unless installed with
   :func:`set_telemetry`;
+- :func:`trace_span` — a timed block that emits ``<name>.done`` with its
+  wall seconds; ``profile=True`` also marks it in a ``torch.profiler``
+  trace (tpuflow marks it in a ``jax.profiler`` one);
 - :class:`EnergyTrace` — (iteration, energy) pairs per solver level, the
   reference's every-64-iterations E(n) prints (OpticalFlow.cpp:261-265).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
@@ -37,6 +40,21 @@ def get_telemetry() -> Telemetry:
 def set_telemetry(t: Telemetry) -> None:
     global _GLOBAL
     _GLOBAL = t
+
+
+@contextlib.contextmanager
+def trace_span(name: str, profile: bool = False, **fields):
+    """Timed span: emits '<name>.done' with wall seconds; optionally
+    labels the block in the profiler's trace."""
+    t0 = time.perf_counter()
+    ctx = contextlib.nullcontext()
+    if profile:
+        import torch.profiler
+
+        ctx = torch.profiler.record_function(name)
+    with ctx:
+        yield
+    _GLOBAL.event(f"{name}.done", wall_s=time.perf_counter() - t0, **fields)
 
 
 @dataclass
