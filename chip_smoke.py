@@ -210,7 +210,45 @@ Phases, each printing one line of its own numbers:
    checks after sweeps 1, 65, ..., so its flow is only reported against
    it); (b) four gloo ranks sharing the card as a 2x2 mesh, the default
    mode: every rank's output equal, labels and winners equal (a)'s, u, v
-   within PATH_TOL.
+   within PATH_TOL. The sharded L1 ops of ``dist/ops.py`` at 376x1240 on
+   (a) and (b), each bitwise its single-device counterpart on the card
+   (timed beside it): ``epsilon_filter_sharded`` (21x21, epsilon 20),
+   ``horizontal_median_sharded``, ``gaussian_filter_sharded`` (21x21,
+   sigma 5) against ``conv2d`` of its 2-D kernel, ``detect_scratch_sharded``
+   on the integer-valued scratch frame, ``hog_matching_sharded`` (65x65)
+   on the pan's dense HOG. Then ``run_pipeline`` with ``devices=1`` (one
+   NCCL rank spawned once for the sequence) over phase pipeline's three
+   flagship frames: its files byte for byte those of ``devices=0``.
+10. pipeline — runs between demos and dist: the reference's main program
+   through the port's CLI in-process on the card
+   (``tpuflow_torch.cli.parser.main([..., "--device", "cuda:0"])``), from
+   files of BM_SHAPE to files (PIPE_MODES): scratch detection with the
+   alignments, ``--exclusive`` and ``--superimpose red``; ``--binary``,
+   also with the 21x21 Gaussian prefilter; ``--filtered`` with the
+   epsilon and the Gaussian filter; ``--HOG``; ``--HOG_matching_vector``
+   over two frames; ``--multiple_affine``; ``--opticalflow_blockmatching``
+   and ``--affine_blockmatching`` over three frames (the middle frame
+   bidirectional). Inputs: gray PGM scratch frames, the Voronoi pan as
+   gray PGM and RGB PPM. Each mode runs with the launch counts zeroed
+   just before and read just after (they join the main paths'): #3 one a
+   Gaussian frame, the flagship modes #11 and #8 as the same frames'
+   direct calls of the flagship launch them (whose outputs they equal
+   bitwise).
+   Every file read back equals what ``process_frame`` returned for it.
+   The port's telemetry spans give each stage's wall ms (the alignment
+   ray scan, the exclusive principle, the Pr tables, HOG, its matching,
+   the flagship).
+   The same modes on BM_CROP against the float32 CPU (the flagship there
+   at BM_CROP_SEARCH, mean-shift kernel PIPE_CROP_KERNEL, PIPE_CROP_ITERS
+   sweeps): scratch maps and segment lists equal (a difference is
+   reported pixel by pixel, or by the angles that differ, before it
+   fails), filtered frames, HOG and the affine fit within PATH_TOL, HOG
+   u, v equal, the flagship's labels, winners and t equal and u, v within
+   PATH_TOL. Each mode logs ms per frame from file read to files written
+   and one profiler frame (its last frame again): the card's busy and
+   idle. Then #3 at the prefilter's
+   21x21 taps on 376x1240 against its plain version, with its bound and
+   one ``F.conv2d``.
 
 Before the last line it prints the total seconds and the kernels as JSON;
 the last line is ``{"ok": true, "device": {...}}``. A failed phase
@@ -220,6 +258,7 @@ CUDA card it exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -334,6 +373,40 @@ LK_MEDIAN_TOL, LK_MAX_TOL, STREAM_MAX_TOL = 1e-5, 1e-3, 1e-2
 AFFINE_LEVEL = 5
 AFFINE_ALONG, AFFINE_ACROSS, AFFINE_EPE_TOL = (0.25, 1.0), 0.1, 0.5
 AFFINE_PROFILED = 256
+# The main program (phase pipeline): the CLI over files of BM_SHAPE; the
+# scratch frames' scratches, vertical ones at PIPE_SCRATCH_COLS over rows
+# PIPE_SCRATCH_ROWS and a slanted one over PIPE_SLANT_ROWS (shares of the
+# frame; a full-height vertical scratch gives ~1,300 segments, and the
+# exclusive principle's host pass takes ~25 s on them: the search's cost
+# follows the segments); the HOG and
+# flagship modes over the Voronoi pan (gray PGM and RGB PPM); each mode's
+# frames. The same modes on BM_CROP against the float32 CPU.
+PIPE_SCRATCH_COLS, PIPE_SCRATCH_ROWS = (0.25,), (0.4, 0.6)
+PIPE_SLANT_ROWS = (0.1, 0.8)
+PIPE_MODES = (  # name, inputs, (start, end), CLI options, output extension
+    ("scratch", "scr", (0, 0), ["--exclusive", "--superimpose", "red"],
+     ".ppm"),
+    ("binary", "scr", (0, 1), ["--binary"], ".pgm"),
+    ("binary_gaussian", "scr", (0, 1), ["--binary", "--filter_type",
+                                        "gaussian"], ".pgm"),
+    ("filtered_epsilon", "scr", (0, 0), ["--filtered", "--filter_type",
+                                         "epsilon"], ".pgm"),
+    ("filtered_gaussian", "scr", (0, 1), ["--filtered", "--filter_type",
+                                          "gaussian"], ".pgm"),
+    ("hog", "pan", (0, 0), ["--HOG"], ".bin"),
+    ("hog_matching", "pan", (0, 1), ["--HOG_matching_vector"], ".bin"),
+    ("multiple_affine", "pan", (0, 1), ["--multiple_affine"], ".txt"),
+    ("opticalflow_bm", "rgb", (0, 2), ["--opticalflow_blockmatching"],
+     ".dat"),
+    ("affine_bm", "rgb", (0, 2), ["--affine_blockmatching"], ".dat"),
+)
+PIPE_GAUSS_TAPS = 21  # FilterParam.change_filter("gaussian"): 21x21
+BM_CROP_SHAPE = (96, 160)  # BM_CROP's
+# optical_flow_block_matching's default sweeps; see dist_pipeline.
+DIST_PIPE_ITERS = 2048
+# The flagship modes on the crop: mean-shift kernel and refine sweeps
+# (the CPU's plain filter at kernel 20 takes ~30 s a mode there).
+PIPE_CROP_KERNEL, PIPE_CROP_ITERS = 8, 64
 # Blocks deeper than one launch of the kernel takes (HS at window 5: 15;
 # the IRLS kernels: 35), which the wrappers split into launches.
 DEEP_HS_FUSE, DEEP_IRLS_FUSE = 16, 40
@@ -824,17 +897,25 @@ def kernel_row(out, name, shape, fn, plain, work, library=None,
     """Check fn() against plain() on the card, time both (and the library
     call, where there is one), log beside the bound of ``work`` (a
     :func:`bound` dict), and keep the first (main-path) shape's numbers
-    in out[name]."""
+    in out[name]. ``plain_reps=0`` times the plain version once, by the
+    host clock around the check's own call (for plain versions of
+    seconds, where a launch's host cost is noise)."""
     import torch
 
-    got, ref = fn(), plain()
+    got = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = plain()
+    torch.cuda.synchronize()
+    plain_once_ms = 1e3 * (time.perf_counter() - t0)
     if isinstance(got, torch.Tensor):
         got, ref = (got,), (ref,)
     err = check_close(f"{name} {shape} {what}", list(zip(got, ref)),
                       KERNEL_TOL)
     del got, ref
     ms = cuda_ms(fn, device_only=True)
-    plain_ms = cuda_ms(plain, reps=plain_reps, device_only=True)
+    plain_ms = (cuda_ms(plain, reps=plain_reps, device_only=True)
+                if plain_reps else plain_once_ms)
     library_ms = None if library is None else cuda_ms(library,
                                                       device_only=True)
     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **work,
@@ -1128,7 +1209,7 @@ def ms_rows(dev, out, usage: bool = True) -> None:
                        x, MS_R, MS_KI, iters),
                    lambda x=x, iters=iters: ms_filter.mean_shift_filter_plain(
                        x, MS_R, MS_KI, iters),
-                   ms_bound(x.shape[:2], MS_R, need), plain_reps=1,
+                   ms_bound(x.shape[:2], MS_R, need), plain_reps=0,
                    iters=iters, query_iterations=need, **what)
         rows.append({"shape": list(x.shape[:2]), "iters": iters,
                      "query_iterations": need, **what,
@@ -1154,7 +1235,7 @@ def ms_rows(dev, out, usage: bool = True) -> None:
                        x, R, MS_KI, iters),
                    lambda x=x, R=R, iters=iters:
                    ms_filter.mean_shift_filter_plain(x, R, MS_KI, iters),
-                   ms_bound((h, w), R, need), plain_reps=1, iters=iters,
+                   ms_bound((h, w), R, need), plain_reps=0, iters=iters,
                    query_iterations=need, **wide)
         rows.append({"shape": [h, w], "iters": iters,
                      "query_iterations": need, **wide,
@@ -1272,7 +1353,7 @@ def phase_kernels_flagship(dev, out) -> None:
                 kernel_row(out, "irls_gated_sweeps", shape,
                            lambda fuse=fuse: run(fuse), plain,
                            gated_bound(cells, GATED_SWEEPS, batch),
-                           plain_reps=1, sweeps=GATED_SWEEPS, fuse=fuse,
+                           plain_reps=0, sweeps=GATED_SWEEPS, fuse=fuse,
                            batch=batch, **usage)
             if shape == BM_SHAPE and batch == 2:
                 deep = DEEP_IRLS_FUSE
@@ -1623,7 +1704,7 @@ def phase_kernels_entries(dev, out) -> None:
                                         *args, n=n),
             lambda n=n: gated_tiles_run(
                 irls_stencil.irls_gated_tile_sweeps_plain, *args, n=n),
-            gated_bound(cells, GATED_SWEEPS, 2), plain_reps=1,
+            gated_bound(cells, GATED_SWEEPS, 2), plain_reps=0,
             sweeps=GATED_SWEEPS, fuse=fuse, batch=2, cut=f"{n}x{n}",
             **({"origin": (-fuse, -fuse)} if n == 1 else {}),
             launches_per_call=launched(
@@ -1665,7 +1746,7 @@ def phase_kernels_entries(dev, out) -> None:
                 ms_filter.mean_shift_filter_tile, lab, iters, n),
             lambda n=n, iters=iters: ms_tiles_run(
                 ms_filter.mean_shift_filter_tile_plain, lab, iters, n),
-            ms_bound(BM_SHAPE, MS_R, need), plain_reps=1, iters=iters, E=E,
+            ms_bound(BM_SHAPE, MS_R, need), plain_reps=0, iters=iters, E=E,
             cut=f"{n}x{n}", query_iterations=need,
             launches_per_call=launched(
                 "mean_shift_filter_tile", lambda n=n, iters=iters:
@@ -1708,7 +1789,7 @@ def phase_kernels_entries(dev, out) -> None:
                        x, MS_R, MS_KI, iters, **opts),
                    lambda x=x, iters=iters: ms_filter.mean_shift_filter_plain(
                        x, MS_R, MS_KI, iters, **opts),
-                   ms_bound(x.shape[:2], MS_R, need), plain_reps=1,
+                   ms_bound(x.shape[:2], MS_R, need), plain_reps=0,
                    iters=iters, outputs="drift,trajectory",
                    query_iterations=need, launches_per_call=launched(
                        "mean_shift_filter", lambda x=x, iters=iters:
@@ -2385,12 +2466,14 @@ def profile_pair(frames, state, dev, top: int = 8) -> None:
 
 def profile_frame(phase: str, fn, top: int = 8, **what) -> None:
     """One call of fn under torch.profiler: the device's busy time against
-    the host clock, and the device ops that take the most time."""
+    the host clock, and the device ops that take the most time. Only the
+    device's activity is traced: host op events add nothing to these
+    numbers and cost the profiler up to a minute on a frame of ~10^5
+    eager ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3051,6 +3134,56 @@ def on_card(dev) -> bool:
     return dev.type == "cuda"
 
 
+def dist_ops_inputs(dev) -> dict:
+    """The sharded L1 ops' inputs at BM_SHAPE on ``dev``: phase
+    pipeline's first scratch frame (integer-valued) and the dense HOG
+    descriptors of the pan's first two gray frames (scaled to [0, 1])."""
+    from tpuflow_torch.features import hog_descriptor
+
+    _, gray = pan_frames_np()
+    scr, g0, g1 = (torch_on(dev, a) for a in (scratch_frames_np(1)[0],
+                                              *gray[:2]))
+    feats = [hog_descriptor(g / 255.0, 16, True, True)[1] for g in (g0, g1)]
+    return {"scr": scr, "feats": feats}
+
+
+def dist_ops_calls(mesh, inp: dict) -> dict:
+    """key -> the sharded call on ``mesh`` (or, with mesh None, its
+    single-device counterpart: gaussian_filter_sharded's is conv2d of its
+    2-D kernel)."""
+    import torch
+
+    from tpuflow_torch import dist as D
+    from tpuflow_torch import ops
+    from tpuflow_torch.detection import detect_scratch
+    from tpuflow_torch.features import hog_matching
+
+    scr, (f0, f1) = inp["scr"], inp["feats"]
+    taps = (PIPE_GAUSS_TAPS, PIPE_GAUSS_TAPS)
+    if mesh is None:
+        return {
+            "ops_epsilon": lambda: ops.epsilon_filter(scr, taps, 20.0),
+            "ops_median": lambda: ops.horizontal_median(scr, 3),
+            "ops_gaussian": lambda: ops.conv2d(scr, ops.gaussian_kernel(
+                taps, 5.0, torch.float32)),
+            "ops_scratch": lambda: torch.stack(detect_scratch(scr)),
+            "ops_hog_matching": lambda: torch.stack(hog_matching(f0, f1))}
+    return {
+        "ops_epsilon": lambda: D.epsilon_filter_sharded(scr, taps, 20.0,
+                                                        mesh),
+        "ops_median": lambda: D.horizontal_median_sharded(scr, 3, mesh),
+        "ops_gaussian": lambda: D.gaussian_filter_sharded(scr, taps, 5.0,
+                                                          mesh),
+        "ops_scratch": lambda: torch.stack(D.detect_scratch_sharded(scr,
+                                                                    mesh)),
+        "ops_hog_matching": lambda: torch.stack(D.hog_matching_sharded(
+            f0, f1, mesh))}
+
+
+DIST_OPS = ("ops_epsilon", "ops_median", "ops_gaussian", "ops_scratch",
+            "ops_hog_matching")
+
+
 def dist_rank(mesh, full: bool):
     """The sharded path's calls on this rank's mesh (see the module
     docstring, phase 6). On a card each call runs with the launch counts
@@ -3124,6 +3257,10 @@ def dist_rank(mesh, full: bool):
             lambda rep: {"hs_tile_sweeps": 4 * (WEAK_ITERS[0] // WEAK_FUSE)
                          * sum(row["devices"] > mesh.iy * mesh.tx + mesh.ix
                                for row in rep["runs"])})
+    if card:
+        for key, fn in dist_ops_calls(mesh, dist_ops_inputs(dev)).items():
+            res[key] = run(f"dist_{key}", fn, {}).cpu()
+            timed(key, fn, 1)
     if full and card:
         # bench.py::bench_weak_scaling_row: best of three means of four.
         for iters in WEAK_ITERS:
@@ -3253,7 +3390,7 @@ def check_ba(name, got, frames, mesh_shape) -> float:
                        list(zip(got["ba"], ref)), PATH_TOL)
 
 
-def phase_dist(dev, ba, single) -> dict:
+def phase_dist(dev, ba, single, pipeline_runs) -> dict:
     """The sharded path, (a) on one NCCL rank and (b) on a 2x2 mesh of gloo
     ranks sharing the card, against the single-device port on the card
     and one float32 gloo CPU rank; then the flagship on a mesh
@@ -3317,6 +3454,16 @@ def phase_dist(dev, ba, single) -> dict:
             shape=tuple(fb_frames[0].shape), mesh=a["mesh"],
             sharded_ms=a["ms"][f"fb_{key}"], **single_fb)
     del hs_ref, hs4k
+    single_ops = {}
+    for key, fn in dist_ops_calls(None, dist_ops_inputs(dev)).items():
+        single_ops[key] = fn().cpu()
+        torch.cuda.synchronize()
+        single_ops[f"{key}_ms"] = host_ms(lambda fn=fn: (
+            fn(), torch.cuda.synchronize()))
+    log("dist", run="a", **{f"{k}_vs_single": exact(
+        f"dist (a) {k} vs the single-device op", got[k], single_ops[k])
+        for k in DIST_OPS}, **{f"single_{k}_ms": single_ops[f"{k}_ms"]
+                               for k in DIST_OPS})
     torch.cuda.synchronize()
 
     cpu = run_on_mesh(dist_rank, 1, "gloo", "cpu", kwargs={"full": False},
@@ -3337,6 +3484,8 @@ def phase_dist(dev, ba, single) -> dict:
     got_b = b["results"]
     errs = {key: exact(f"dist (b) {key} vs (a)", got_b[key], got[key])
             for key in ("hs_fused", "hs_unfused", "dynamic")}
+    errs.update({key: exact(f"dist (b) {key} vs the single-device op",
+                            got_b[key], single_ops[key]) for key in DIST_OPS})
     for key, _, _ in DIST_FB_CASES:
         errs[f"fb_{key}"] = check_close(
             f"dist (b) farneback_sharded {key} vs (a)",
@@ -3361,7 +3510,47 @@ def phase_dist(dev, ba, single) -> dict:
     for k, n in phase_dist_flagship(dev, single).items():
         launches[k] = launches.get(k, 0) + n
     log("dist", flagship_seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    dist_pipeline(pipeline_runs)
+    log("dist", pipeline_seconds=time.perf_counter() - t0)
     return launches
+
+
+def dist_pipeline(pipeline_runs: dict, device="cuda") -> None:
+    """``run_pipeline`` with ``devices=1`` (one NCCL rank, spawned once)
+    over phase pipeline's flagship frames: its files are those of the
+    ``devices=0`` run byte for byte. Both run DIST_PIPE_ITERS refine
+    sweeps: the sharded refine runs whole fused blocks (tpuflow's too),
+    so it equals the single-device one where the sweeps divide into them,
+    and the CLI's 300 do not."""
+    from tpuflow_torch.pipeline.orchestrator import run_pipeline
+
+    for name in ("opticalflow_bm",):
+        inputs, pattern, out_dir = pipeline_runs[name]
+        argv, span = next((m[3], m[2]) for m in PIPE_MODES if m[0] == name)
+        folders, ms = {}, {}
+        for devices in (0, 1):
+            opts = pipeline_options(argv, crop=False)
+            opts.multiple_motion_param.irls_iter_max = DIST_PIPE_ITERS
+            opts.devices = devices
+            folders[devices] = out_dir.parent / f"{name}_devices{devices}"
+            folders[devices].mkdir()
+            t0 = time.perf_counter()
+            run_pipeline(inputs, str(folders[devices] / Path(pattern).name),
+                         span[0], span[1], opts, device=device)
+            ms[devices] = 1e3 * (time.perf_counter() - t0)
+        names = sorted(p.name for p in folders[0].iterdir())
+        if names != sorted(p.name for p in folders[1].iterdir()):
+            raise AssertionError(f"dist pipeline {name}: devices=1 wrote "
+                                 "other files than devices=0")
+        for fname in names:
+            if (folders[1] / fname).read_bytes() != (folders[0] / fname
+                                                     ).read_bytes():
+                raise AssertionError(f"dist pipeline {name}: {fname} of "
+                                     "devices=1 differs from devices=0")
+        log("dist", pipeline=name, iter_max=DIST_PIPE_ITERS,
+            files_equal=len(names), ms_three_frames_devices0=ms[0],
+            ms_three_frames_devices1_with_spawn=ms[1])
 
 
 def phase_dist_flagship(dev, single) -> dict:
@@ -3408,6 +3597,452 @@ def phase_dist_flagship(dev, single) -> dict:
     return a["launches"]
 
 
+# -- the main program: the CLI from files to files ----------------------------
+
+
+def scratch_frames_np(n=2):
+    """Integer-valued gray BM_SHAPE frames: a flat background with noise
+    of std 0.6, a bright vertical scratch at each of PIPE_SCRATCH_COLS over
+    PIPE_SCRATCH_ROWS (frame k's moved k px) and a dark slanted one over
+    PIPE_SLANT_ROWS, one px right every 8 rows (shares of the frame)."""
+    h, w = BM_SHAPE
+    rng = np.random.default_rng(21)
+    out = []
+    for k in range(n):
+        img = np.round(rng.normal(110.0, 0.6, (h, w)))
+        v0, v1 = (int(r * h) for r in PIPE_SCRATCH_ROWS)
+        for c in PIPE_SCRATCH_COLS:
+            img[v0:v1, int(c * w) + k] += 45.0
+        r0, r1 = (int(r * h) for r in PIPE_SLANT_ROWS)
+        for y in range(r0, r1):
+            img[y, w // 2 + y // 8] -= 50.0
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+def pan_frames_np():
+    """The Voronoi pan (phase main's flagship frames) as 8-bit RGB, and
+    its BT.601 gray rounded to 8 bits."""
+    frames, _ = voronoi_frames(BM_SHAPE)
+    rgb = [np.rint(f).astype(np.uint8) for f in frames]
+    gray = [np.rint(0.299 * f[..., 0] + 0.587 * f[..., 1]
+                    + 0.114 * f[..., 2]).astype(np.uint8) for f in rgb]
+    return rgb, gray
+
+
+def write_pipeline_files(folder: Path, crop=None) -> dict:
+    """The phase's input files: scr_%04d.pgm, pan_%04d.pgm, rgb_%04d.ppm
+    (cut to ``crop`` if given). Returns inputs -> pattern."""
+    from tpuflow_torch.core.io import write_pnm
+
+    rgb, gray = pan_frames_np()
+    sets = {"scr": (scratch_frames_np(), ".pgm"), "pan": (gray, ".pgm"),
+            "rgb": (rgb, ".ppm")}
+    folder.mkdir(parents=True, exist_ok=True)
+    for name, (frames, ext) in sets.items():
+        for k, f in enumerate(frames):
+            write_pnm(folder / f"{name}_{k:04d}{ext}",
+                      f if crop is None else f[crop])
+    return {name: str(folder / f"{name}_%04d{ext}")
+            for name, (_, ext) in sets.items()}
+
+
+class FrameRecorder:
+    """Wraps the orchestrator's process_frame while active: keeps each
+    frame's output name, results and ms (to the card's last op), its
+    inputs and a copy of the state it met."""
+
+    def __init__(self):
+        self.frames = []
+
+    def __enter__(self):
+        from tpuflow_torch.pipeline import orchestrator
+
+        self.module = orchestrator
+        self.inner = orchestrator.process_frame
+
+        def recorded(frame, maxint, opts, out_name, state, *a, **kw):
+            import copy
+
+            import torch
+
+            before = copy.deepcopy(state)
+            t0 = time.perf_counter()
+            res, st = self.inner(frame, maxint, opts, out_name, state, *a,
+                                 **kw)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            self.frames.append({"out_name": out_name, "results": res,
+                                "ms": 1e3 * (time.perf_counter() - t0),
+                                "frame": frame, "maxint": maxint,
+                                "opts": opts, "kw": kw,
+                                "state_before": before})
+            return res, st
+
+        orchestrator.process_frame = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.module.process_frame = self.inner
+
+
+@contextlib.contextmanager
+def telemetry_spans():
+    """The port's telemetry into memory while active; yields a dict that
+    then maps each span name to its wall ms per occurrence."""
+    import io
+
+    from tpuflow_torch.utils.telemetry import (Telemetry, get_telemetry,
+                                               set_telemetry)
+
+    sink, prev, spans = io.StringIO(), get_telemetry(), {}
+    set_telemetry(Telemetry(sink))
+    try:
+        yield spans
+    finally:
+        set_telemetry(prev)
+        for line in sink.getvalue().splitlines():
+            ev = json.loads(line)
+            if ev["event"].endswith(".done"):
+                spans.setdefault(ev["event"][:-5], []).append(
+                    round(1e3 * ev["wall_s"], 3))
+
+
+def pnm_of(values, maxval=255):
+    """What write_pnm stores for ``values`` (clipped, truncated)."""
+    return np.clip(np.asarray(values), 0, maxval).astype(
+        np.uint16 if maxval > 255 else np.uint8)
+
+
+def check_pipeline_files(name: str, rec: FrameRecorder) -> int:
+    """Every file a mode wrote, read back, equals what process_frame
+    returned for it. Returns the number of files checked."""
+    from tpuflow_torch.core import io as tio
+    from tpuflow_torch.pipeline.orchestrator import _insert_tag
+
+    def same(path, want, what):
+        # PNM bytes whatever the extension (the HOG-compensated frame).
+        got = tio.read_pnm(path)[0]
+        if not np.array_equal(got, want):
+            raise AssertionError(f"pipeline {name}: {path} differs from "
+                                 f"the returned {what}")
+
+    checked = 0
+    flows = {}
+    for k, fr in enumerate(rec.frames):
+        res, out = fr["results"], fr["out_name"]
+        if "superimposed" in res:
+            same(out, pnm_of(res["superimposed"]), "superimposed plot")
+        elif "scratch_map" in res:
+            same(out, pnm_of(res["scratch_map"]), "scratch map")
+        elif "filtered" in res:
+            same(out, pnm_of(res["filtered"]), "filtered frame")
+        elif "hog_vector" in res:
+            u, v, score = res["hog_vector"]
+            got = tio.read_flow(out, components=3)
+            if not all(np.array_equal(g, w.astype(np.float64))
+                       for g, w in zip(got, (u, v, score))):
+                raise AssertionError(f"pipeline {name}: {out} differs")
+            stem = Path(out)
+            same(str(stem.with_name(stem.stem + "compensated" + stem.suffix)),
+                 pnm_of(res["hog_compensated"]), "HOG-compensated frame")
+            checked += 1
+        elif "hog" in res and not fr["opts"].mode & 0x4000:
+            # (A first frame of the matching mode writes nothing.)
+            got, _ = tio.read_hog(out)
+            if not np.array_equal(got, res["hog"].astype(np.float64)):
+                raise AssertionError(f"pipeline {name}: {out} differs")
+        elif "affine" in res:
+            if not np.array_equal(tio.read_affine(out),
+                                  res["affine"].astype(np.float64)):
+                raise AssertionError(f"pipeline {name}: {out} differs")
+        elif "flow" in res:
+            o = res["flow"]
+            seg = o.segmentation
+            same(_insert_tag(out, "segmentation_") + ".pgm",
+                 pnm_of(seg.labels, max(seg.n_regions - 1, 1)),
+                 "segmentation")
+            same(_insert_tag(out, "color-quantized_") + ".ppm",
+                 o.quantized_rgb, "colour-quantized frame")
+            sv = tio.read_flow(_insert_tag(out, "shift-vector_"))
+            if not all(np.array_equal(g, o.shift_vector[..., i])
+                       for i, g in enumerate(sv)):
+                raise AssertionError(f"pipeline {name}: shift vectors differ")
+            # The middle frame's flow goes under the previous name.
+            flows[rec.frames[k - 1]["out_name"] if o.bidirectional
+                  else out] = (o.u, o.v)
+            checked += 2
+        else:
+            continue  # a first frame with nothing to write
+        checked += 1
+    for path, (u, v) in flows.items():
+        got = tio.read_flow(path)
+        if not (np.array_equal(got[0], u) and np.array_equal(got[1], v)):
+            raise AssertionError(f"pipeline {name}: {path} differs from the "
+                                 "last flow written under it")
+        checked += 1
+    return checked
+
+
+def pipeline_options(argv, crop: bool):
+    from tpuflow_torch.cli.parser import build_parser, parse_args_to_options
+
+    opts = parse_args_to_options(build_parser().parse_args(
+        ["-i", "x", "-o", "y", *argv]))
+    if crop:
+        mm = opts.multiple_motion_param
+        mm.bm_search_range = BM_CROP_SEARCH
+        mm.bm_kernel_spatial = PIPE_CROP_KERNEL
+        mm.irls_iter_max = PIPE_CROP_ITERS
+    return opts
+
+
+def segment_tuples(segs):
+    return [(s.n, s.m, s.x, s.y, s.pr) for s in segs]
+
+
+def report_scratch_diff(name, card, cpu, frame_res) -> None:
+    """Where the card's and the CPU's scratch maps differ: each pixel's
+    |il - ir| - s_avg and |I - Im| - s_med on the CPU's frame."""
+    import torch
+
+    from tpuflow_torch.detection.scratch import side_counts
+    from tpuflow_torch.ops import horizontal_median
+
+    diff = np.argwhere(card != cpu)
+    log("pipeline", mode=name, scratch_pixels_differing=len(diff))
+    fr = frame_res["frame"]
+    img = torch.from_numpy(np.asarray(fr, np.float64))
+    med = horizontal_median(img, 3)
+    h, w = img.shape
+    for y, x in diff[:20]:
+        l_cnt, r_cnt, (la, lb, ra, rb) = side_counts(torch.tensor(x), w)
+        il = float(img[y, int(la):int(lb) + 1].sum()) / max(int(l_cnt), 1)
+        ir = float(img[y, int(ra):int(rb) + 1].sum()) / max(int(r_cnt), 1)
+        log("pipeline", mode=name, pixel=(int(y), int(x)),
+            side_margin=abs(il - ir) - frame_res["opts"].s_avg,
+            median_margin=float((img[y, x] - med[y, x]).abs())
+            - frame_res["opts"].s_med)
+
+
+def check_pipeline_crop(name, card: FrameRecorder, cpu: FrameRecorder):
+    """The crop run on the card against the float32 CPU run, frame by
+    frame: scratch maps and segment lists equal, filtered frames and HOG
+    within PATH_TOL, HOG u, v equal, the flagship's labels, winners and t
+    equal and u, v within PATH_TOL, the affine fit within PATH_TOL.
+    Returns the largest |d| checked against a tolerance."""
+    import torch
+
+    from tpuflow_torch.ops import derivative_angler
+
+    worst = 0.0
+    for a, b in zip(card.frames, cpu.frames):
+        ra, rb = a["results"], b["results"]
+        if sorted(ra) != sorted(rb):
+            raise AssertionError(f"pipeline crop {name}: results differ")
+        if "scratch_map" in ra and not np.array_equal(ra["scratch_map"],
+                                                      rb["scratch_map"]):
+            report_scratch_diff(name, ra["scratch_map"], rb["scratch_map"], b)
+            raise AssertionError(f"pipeline crop {name}: scratch maps differ")
+        if "segments" in ra and segment_tuples(ra["segments"]) != \
+                segment_tuples(rb["segments"]):
+            ang = [derivative_angler(torch.from_numpy(r["scratch_map"]).to(
+                d)).cpu().numpy() for r, d in ((ra, "cuda"), (rb, "cpu"))]
+            log("pipeline", mode=name, angles_differing=int(
+                (ang[0] != ang[1]).sum()), segments_card=len(ra["segments"]),
+                segments_cpu=len(rb["segments"]))
+            raise AssertionError(f"pipeline crop {name}: segments differ")
+        for key in ("filtered", "hog", "hog_raw", "affine",
+                    "hog_compensated"):
+            if key in ra:
+                worst = max(worst, check_close(
+                    f"pipeline crop {name} {key}",
+                    [(torch.from_numpy(np.asarray(ra[key], np.float64)),
+                      torch.from_numpy(np.asarray(rb[key], np.float64)))],
+                    PATH_TOL))
+        if "hog_vector" in ra:
+            (u, v, s), (cu, cv, cs) = ra["hog_vector"], rb["hog_vector"]
+            if not (np.array_equal(u, cu) and np.array_equal(v, cv)):
+                raise AssertionError(f"pipeline crop {name}: HOG vectors "
+                                     f"differ at {int((u != cu).sum())} "
+                                     "sites")
+            worst = max(worst, check_close(
+                f"pipeline crop {name} score", [(torch.from_numpy(s),
+                                                 torch.from_numpy(cs))],
+                PATH_TOL))
+        if "flow" in ra:
+            worst = max(worst, check_bm_vs_cpu(f"pipeline crop {name}",
+                                               ra["flow"], rb["flow"]))
+    return worst
+
+
+def run_cli(argv) -> None:
+    from tpuflow_torch.cli.parser import main as cli_main
+
+    rc = cli_main(argv)
+    if rc != 0:
+        raise AssertionError(f"CLI {argv} returned {rc}")
+
+
+def pipeline_direct(name, inputs, span, dev, blocks):
+    """The kernels' direct calls on the frames of one mode, as the
+    orchestrator makes them: the Gaussian prefilter per frame, or the
+    flagship over the frames (the CLI's defaults). Returns their
+    outputs."""
+    from tpuflow_torch.core.io import read_image
+    from tpuflow_torch.ops import gaussian_filter
+    from tpuflow_torch.solvers.bm_flow import BMFlowState
+
+    frames = [read_image(inputs.replace("%04d", f"{k:04d}"))[0]
+              for k in range(span[0], span[1] + 1)]
+    if "gaussian" in name:
+        return [gaussian_filter(torch_on(dev, f), (PIPE_GAUSS_TAPS,) * 2, 5.0)
+                for f in frames]
+    opts = pipeline_options(dict((m[0], m[3]) for m in PIPE_MODES)[name],
+                            False)
+    mm = opts.multiple_motion_param
+    state, outs = BMFlowState(), []
+    for k in range(1, len(frames)):
+        out, state = bm_pair(
+            [f.astype(np.float64) for f in frames], k - 1, state, dev,
+            blocks, mode=0x0100 if name == "affine_bm" else 0,
+            iter_max=mm.irls_iter_max)
+        outs.append(out)
+    return outs
+
+
+def torch_on(dev, a):
+    import torch
+
+    return torch.tensor(np.asarray(a, np.float64), dtype=torch.float32,
+                        device=dev)
+
+
+def pipeline_expected(name, span, dev):
+    """A mode's launches, from the direct calls on the same frames."""
+    if "gaussian" in name:
+        return lambda _: {"sep_conv2d_valid": span[1] - span[0] + 1}
+    if not name.endswith("_bm"):
+        return {}
+    blocks = []
+    return blocks, lambda _: {
+        "mean_shift_filter": span[1] - span[0] + 1,
+        "irls_gated_sweeps": sum(blocks) if name == "opticalflow_bm" else 0}
+
+
+def phase_pipeline(dev, totals: dict, folder: Path) -> dict:
+    """The reference's main program through the port's CLI on the card
+    (module docstring, phase 10). Returns the flagship runs' folders for
+    phase dist."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    from tpuflow_torch.kernels import sepconv
+
+    t0 = time.perf_counter()
+    inputs = write_pipeline_files(folder / "in")
+    crop_in = write_pipeline_files(folder / "crop_in", BM_CROP)
+    kept = {}
+    for name, kind, span, argv, ext in PIPE_MODES:
+        out_dir = folder / name
+        out_dir.mkdir()
+        pattern = str(out_dir / f"{name}_%04d{ext}")
+        cli = ["-i", inputs[kind], "-o", pattern, "-s", str(span[0]), "-e",
+               str(span[1]), *argv, "--device", str(dev)]
+        direct = None
+        expected = pipeline_expected(name, span, dev)
+        if isinstance(expected, tuple):  # the flagship: count the direct run
+            blocks, expected = expected
+            direct = counted(f"pipeline_direct_{name}", lambda: pipeline_direct(
+                name, inputs[kind], span, dev, blocks), expected, {})
+            want = expected(None)
+        elif expected:
+            want = expected(None)
+            direct = pipeline_direct(name, inputs[kind], span, dev, None)
+        else:
+            want = {}
+        with FrameRecorder() as rec, telemetry_spans() as spans:
+            t1 = time.perf_counter()
+            counted(f"pipeline_{name}", lambda: run_cli(cli), want, totals)
+            cli_ms = 1e3 * (time.perf_counter() - t1)
+        n_files = check_pipeline_files(name, rec)
+        if direct is not None:
+            # The orchestrator's results are the direct calls' bitwise.
+            for k, d in enumerate(direct):
+                if "gaussian" in name:
+                    continue
+                o = rec.frames[k + 1]["results"]["flow"]
+                if not (np.array_equal(o.u, d.u) and np.array_equal(o.v, d.v)
+                        and np.array_equal(o.segmentation.labels,
+                                           d.segmentation.labels)):
+                    raise AssertionError(f"pipeline {name}: pair {k + 1} "
+                                         "differs from the direct call")
+        n = span[1] - span[0] + 1
+        numbers = {}
+        if name == "scratch":
+            numbers["segments"] = len(rec.frames[0]["results"]["segments"])
+        if "hog_vector" in rec.frames[-1]["results"]:
+            u, v, _ = rec.frames[-1]["results"]["hog_vector"]
+            numbers["hog_median_uv"] = [float(np.median(u)),
+                                        float(np.median(v))]
+        log("pipeline", mode=name, shape=BM_SHAPE, frames=n,
+            launches=json.dumps(want), files_checked=n_files,
+            card_ms_per_frame_file_to_file=cli_ms / n,
+            process_frame_ms=[round(f["ms"], 3) for f in rec.frames],
+            span_ms=json.dumps(spans), **numbers)
+        if name.endswith("_bm"):
+            kept[name] = (inputs[kind], pattern, out_dir)
+        # One profiler frame: the last frame again, from a copy of the
+        # state it met, written to a folder of its own.
+        last = rec.frames[-1]
+        prof_dir = folder / f"{name}_profiled"
+        prof_dir.mkdir()
+        from tpuflow_torch.pipeline import orchestrator
+
+        profile_frame("pipeline", lambda: orchestrator.process_frame(
+            last["frame"], last["maxint"], last["opts"],
+            str(prof_dir / Path(last["out_name"]).name),
+            copy.deepcopy(last["state_before"]), **last["kw"]), mode=name)
+        # The crop, on the card and on the float32 CPU.
+        opts = pipeline_options(argv, crop=True)
+        runs = {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            sub = folder / f"{name}_crop_{where}"
+            sub.mkdir()
+            with FrameRecorder() as crec:
+                from tpuflow_torch.pipeline.orchestrator import run_pipeline
+
+                t1 = time.perf_counter()
+                run_pipeline(crop_in[kind], str(sub / f"c_%04d{ext}"),
+                             span[0], span[1], copy.deepcopy(opts), device=d)
+                runs[where] = (crec, 1e3 * (time.perf_counter() - t1))
+        err = check_pipeline_crop(name, runs["card"][0], runs["cpu"][0])
+        log("pipeline", mode=name, crop=tuple(BM_CROP_SHAPE),
+            max_abs_err_vs_cpu=err, equal_maps_segments_winners=True,
+            card_ms_crop=runs["card"][1],
+            chip_host_cpu_f32_ms_crop=runs["cpu"][1])
+    # Kernel #3 at the prefilter's 21x21 taps on the frame.
+    rng = np.random.default_rng(21)
+    r = PIPE_GAUSS_TAPS // 2
+    padded = torch_on(dev, rng.uniform(0, 255, (BM_SHAPE[0] + 2 * r,
+                                                BM_SHAPE[1] + 2 * r)))
+    xs = np.arange(PIPE_GAUSS_TAPS, dtype=np.float64) - r
+    g = np.exp(-(xs ** 2) / (2.0 * 5.0 ** 2))
+    g /= g.sum()
+    taps = sepconv.host_taps(g, torch.float32)
+    k2 = torch_on(dev, np.outer(taps, taps)[None, None])
+    kernel_row({}, "sep_conv2d_valid", BM_SHAPE,
+               lambda: sepconv.sep_conv2d_valid(padded, g, g),
+               lambda: sepconv.sep_conv2d_valid_plain(padded, taps, taps),
+               sep_bound(*padded.shape, PIPE_GAUSS_TAPS, PIPE_GAUSS_TAPS),
+               library=lambda: F.conv2d(padded[None, None], k2),
+               taps=(PIPE_GAUSS_TAPS, PIPE_GAUSS_TAPS), path="pipeline")
+    log("pipeline", seconds=time.perf_counter() - t0)
+    return kept
+
+
 def main() -> None:
     t_start = time.perf_counter()
     sys.path.insert(0, str(REPO))
@@ -3434,14 +4069,18 @@ def main() -> None:
     phase_affine(dev, *affine)
     phase_demos(dev, launches)
     labeler_row(dev)
-    single = {"default": bm[1], "fast": bm[3]["fast"][0],
-              "affine": affine[1][1]}
-    t0 = time.perf_counter()
-    for k, n in phase_dist(dev, ba, {mode: [bm_fields(o) for o in outs]
-                                     for mode, outs in single.items()}
-                           ).items():
-        launches[k] = launches.get(k, 0) + n
-    log("dist", seconds=time.perf_counter() - t0)
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="tpuflow_pipeline_") as tmp:
+        pipeline_runs = phase_pipeline(dev, launches, Path(tmp))
+        single = {"default": bm[1], "fast": bm[3]["fast"][0],
+                  "affine": affine[1][1]}
+        t0 = time.perf_counter()
+        for k, n in phase_dist(dev, ba, {mode: [bm_fields(o) for o in outs]
+                                         for mode, outs in single.items()},
+                               pipeline_runs).items():
+            launches[k] = launches.get(k, 0) + n
+        log("dist", seconds=time.perf_counter() - t0)
     kernels = []
     for kname, source, replaces in (
             ("hs_sweeps", "tpuflow_torch/csrc/hs_stencil.cu",

@@ -42,7 +42,14 @@ SLICE_MODULES = ("tpuflow_torch.core.io", "tpuflow_torch.core.errors",
                  "tpuflow_torch.pipeline.writers", "tpuflow_torch.viz",
                  "tpuflow_torch.viz.colorwheel", "tpuflow_torch.viz.quiver",
                  "tpuflow_torch.viz.plot2d", "tpuflow_torch.viz.plot3d",
-                 "tpuflow_torch.dist.farneback")
+                 "tpuflow_torch.dist.farneback",
+                 # The main program's slice.
+                 "tpuflow_torch.detection.scratch",
+                 "tpuflow_torch.detection.alignments",
+                 "tpuflow_torch.detection.exclusive",
+                 "tpuflow_torch.features.hog", "tpuflow_torch.dist.ops",
+                 "tpuflow_torch.pipeline.orchestrator",
+                 "tpuflow_torch.cli.parser", "tpuflow_torch.cli.__main__")
 
 
 def test_imports_no_jax_and_builds_nothing():
@@ -100,3 +107,22 @@ def test_solvers_export_what_tpuflow_exports():
     assert len(names) >= 24
     assert [n for n in names if not callable(getattr(tsolvers, n, None))] \
         == []
+
+
+@pytest.mark.parametrize("package,least", [("detection", 9),
+                                           ("features", 6), ("ops", 12),
+                                           ("dist", 20)])
+def test_package_exports_what_tpuflow_exports(package, least):
+    """Every public function and class of ``tpuflow.<package>`` has its
+    namesake in ``tpuflow_torch.<package>`` (tpuflow's submodules
+    aside)."""
+    import importlib
+    import types
+
+    jpkg = importlib.import_module(f"tpuflow.{package}")
+    tpkg = importlib.import_module(f"tpuflow_torch.{package}")
+    names = [n for n in dir(jpkg) if not n.startswith("_")
+             and callable(getattr(jpkg, n))
+             and not isinstance(getattr(jpkg, n), types.ModuleType)]
+    assert len(names) >= least
+    assert [n for n in names if not callable(getattr(tpkg, n, None))] == []

@@ -8,8 +8,8 @@ candidate-parallel search (``dist/bm.py``), the tiled gated refine and
 affine fit (``dist/bm_refine.py``); its tiled mean-shift filter is
 ``tpuflow_torch.segmentation.meanshift.mean_shift_filter_sharded``.
 ``farneback_sharded`` (``dist/farneback.py``) tiles Farneback's finest
-level on the poly-expansion and blur-solve kernels. Not ported yet
-(ROADMAP.md, Queue 1): the sharded ops of ``dist/ops.py``.
+level on the poly-expansion and blur-solve kernels. ``dist/ops.py``
+tiles the L1 image ops, HOG matching and scratch detection.
 """
 
 from tpuflow_torch.dist.mesh import Mesh, make_mesh, mesh_factor, run_on_mesh  # noqa: F401
@@ -37,4 +37,13 @@ from tpuflow_torch.dist.bm_refine import (  # noqa: F401
 from tpuflow_torch.dist.farneback import (  # noqa: F401
     farneback_sharded,
     halo_pad_2d_clamp,
+)
+from tpuflow_torch.dist.ops import (  # noqa: F401
+    conv2d_sharded,
+    detect_scratch_sharded,
+    epsilon_filter_sharded,
+    filterer_sharded,
+    gaussian_filter_sharded,
+    hog_matching_sharded,
+    horizontal_median_sharded,
 )

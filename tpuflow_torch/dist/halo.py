@@ -112,16 +112,24 @@ def tile_of(full: torch.Tensor, mesh: Mesh, halo: int = 0) -> torch.Tensor:
                mesh.ix * tw : mesh.ix * tw + tw + 2 * halo].contiguous()
 
 
+def all_gather(x: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
+    """Every rank's ``x`` in mesh order, on x's device."""
+    if mesh.size == 1:
+        return [x]
+    src = x.cpu() if mesh.staged else x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(mesh.size)]
+    dist.all_gather(parts, src, group=mesh.group)
+    return [p.to(x.device) for p in parts]
+
+
 def gather_tiles(tile: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The full (..., H, W) frame from every rank's tile, on every rank."""
     if mesh.size == 1:
         return tile
-    src = tile.cpu() if mesh.staged else tile.contiguous()
-    parts = [torch.empty_like(src) for _ in range(mesh.size)]
-    dist.all_gather(parts, src, group=mesh.group)
+    parts = all_gather(tile, mesh)
     rows = [torch.cat(parts[i * mesh.tx : (i + 1) * mesh.tx], dim=-1)
             for i in range(mesh.ty)]
-    return torch.cat(rows, dim=-2).to(tile.device)
+    return torch.cat(rows, dim=-2)
 
 
 def all_reduce(x: torch.Tensor, mesh: Mesh, op) -> torch.Tensor:

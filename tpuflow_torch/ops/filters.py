@@ -1,4 +1,4 @@
-"""L1 image filters (port of the dense-flow subset of :mod:`tpuflow.ops.filters`).
+"""L1 image filters (port of :mod:`tpuflow.ops.filters`).
 
 Filters with host-side taps are written as sums of shifted slices of the
 padded image, one per nonzero tap. That keeps them exact float32 on the
@@ -18,6 +18,13 @@ about three decimal digits. Taps are array-likes converted on the host.
   ``poly_expansion(use_kernel=False)``.
 - ``gaussian_kernel``/``gaussian_filter`` are the reference's
   ``Gaussian`` (ImgLibrary.cpp:124-244); ``filterer`` its ``Filterer``.
+- ``epsilon_filter`` (EpsilonFilter, ImgLibrary.cpp:58-121) and
+  ``horizontal_median`` (HorizontalMedian, ImgLibrary.cpp:8-55): scratch
+  detection's prefilter and median. Both are plain PyTorch on every
+  device (no TPU kernel stands behind them): the epsilon filter adds its
+  window's taps in tpuflow's order, rows outer and columns inner, so it
+  gives tpuflow's bits at float64 and the same bits on the card as on
+  the CPU; the median sorts each pixel's window.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 
 from tpuflow_torch.core import borders as bd
 from tpuflow_torch.kernels.sepconv import sep_conv2d_valid
+from tpuflow_torch.utils.numerics import true_div
 
 
 def _taps(kernel) -> np.ndarray:
@@ -152,3 +160,83 @@ def gaussian_filter(img: torch.Tensor, size_wh: tuple[int, int],
         return sep_conv2d(img, kx / kx.sum(), ky / ky.sum(), border=bd.ZERO)
     k = gaussian_kernel(size_wh, sigma, dtype=img.dtype)
     return conv2d(img, k, border=bd.ZERO, flip=False)
+
+
+def epsilon_window(center: torch.Tensor, pz: torch.Tensor, pm: torch.Tensor,
+                   size_wh: tuple[int, int], epsilon: float) -> torch.Tensor:
+    """The epsilon filter's window sum over (h, w) ``center`` pixels, from
+    its zero-padded (``pz``) and mirror-padded (``pm``) windows, each
+    padded by (h//2, w//2) on every side: a neighbour within epsilon of
+    the centre adds its mirrored value, any other the centre's."""
+    w, h = size_wh
+    ht, wt = center.shape[-2:]
+    acc = torch.zeros_like(center)
+    for fy in range(h):
+        for fx in range(w):
+            nz = pz[..., fy : fy + ht, fx : fx + wt]
+            nm = pm[..., fy : fy + ht, fx : fx + wt]
+            take = (center - nz).abs() <= epsilon
+            acc = acc + torch.where(take, nm, center)
+    return true_div(acc, float(w * h))
+
+
+def _check_epsilon_size(size_wh) -> None:
+    w, h = size_wh
+    if w % 2 == 0 or h % 2 == 0 or w <= 0 or h <= 0:
+        raise ValueError("epsilon filter size must be odd and positive")
+
+
+def epsilon_filter(img: torch.Tensor, size_wh: tuple[int, int],
+                   epsilon: float) -> torch.Tensor:
+    """Edge-preserving epsilon filter (ImgLibrary.cpp:100-115).
+
+    out(x,y) = mean over window of { mirror(img)(x+f) if
+    |img(x,y) - zeropad(img)(x+f)| <= eps else img(x,y) }.
+    """
+    _check_epsilon_size(size_wh)
+    w2, h2 = size_wh[0] // 2, size_wh[1] // 2
+    pad = (h2, h2, w2, w2)
+    return epsilon_window(img, bd.pad2d(img, pad, bd.ZERO),
+                          bd.pad2d(img, pad, bd.MIRROR), size_wh, epsilon)
+
+
+def median_window(padded: torch.Tensor, x0: int, width: int,
+                  full_w: int) -> torch.Tensor:
+    """The horizontal median of the columns ``x0 .. x0 + wt - 1`` of a
+    frame ``full_w`` wide, from rows padded by (width-1)//2 columns on the
+    left and width//2 on the right: the window shrinks where it leaves the
+    frame (GLOBAL columns decide), and an even count averages the two
+    middle values."""
+    lo = width // 2
+    hi = (width - 1) // 2
+    k = lo + hi + 1
+    wt = padded.shape[-1] - k + 1
+    cols = torch.stack([padded[..., i : i + wt] for i in range(k)], dim=-1)
+    x = x0 + torch.arange(wt, device=padded.device)
+    off = torch.arange(k, device=padded.device) - hi
+    valid = (x[:, None] + off[None, :] >= 0) & (x[:, None] + off[None, :]
+                                                 < full_w)
+    cols = torch.where(valid, cols, torch.full((), float("inf"),
+                                               dtype=cols.dtype,
+                                               device=cols.device))
+    srt = cols.sort(dim=-1).values
+    count = valid.sum(dim=-1)
+    mid_hi = (count // 2).expand(*srt.shape[:-1])[..., None]
+    mid_lo = ((count - 1) // 2).expand(*srt.shape[:-1])[..., None]
+    g_hi = srt.gather(-1, mid_hi)[..., 0]
+    g_lo = srt.gather(-1, mid_lo)[..., 0]
+    return 0.5 * (g_hi + g_lo)
+
+
+def horizontal_median(img: torch.Tensor, width: int) -> torch.Tensor:
+    """Median over a horizontal window of ``width`` pixels.
+
+    The *intended* HorizontalMedian (ImgLibrary.cpp:8-55), as tpuflow
+    implements it: interior window [x-(w-1)//2, x+w//2]; at the left
+    border the window is [0, w//2], at the right border
+    [x-(w-1)//2, W-1]; even-length windows average the two central order
+    statistics.
+    """
+    lo, hi = width // 2, (width - 1) // 2
+    padded = bd.pad2d(img, (0, 0, hi, lo), bd.ZERO)
+    return median_window(padded, 0, width, img.shape[-1])
