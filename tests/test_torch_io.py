@@ -217,7 +217,7 @@ def test_trace_span_matches(monkeypatch):
         monkeypatch.setattr(tel, "_GLOBAL", tel.Telemetry(stream))
         with tel.trace_span("stage", frame=3):
             pass
-        with tel.trace_span("stage", profile=False):
+        with tel.trace_span("stage"):
             pass
         lines = [json.loads(x) for x in stream.getvalue().splitlines()]
         assert all(r["wall_s"] >= 0 for r in lines)
@@ -228,10 +228,10 @@ def test_trace_span_matches(monkeypatch):
 
 
 def test_trace_span_profile_labels_the_trace():
-
+    """A span labels the trace of a recording profiler unasked."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU]) as prof:
-        with ttel.trace_span("tiled_stage", profile=True):
+        with ttel.trace_span("tiled_stage"):
             torch.ones(4) + 1
     assert "tiled_stage" in {e.key for e in prof.key_averages()}
 

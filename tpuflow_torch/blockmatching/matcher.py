@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from tpuflow_torch.core.color import LAB_SCALE as _LAB_SCALE
+from tpuflow_torch.utils.telemetry import note, record_span
 
 #: The integer-search evaluators (tpuflow's, in its order).
 METHODS = ("matmul", "matmul_bf16", "matmul_coarse", "matmul_coarse3",
@@ -281,16 +282,22 @@ def _integer_costs(cur_lab, ref_lab, perm, bounds, n_regions: int, cand,
 def _strip_plan(labels: np.ndarray, device):
     """Per strip of :data:`_STRIP` rows: (y0, rows, the regions present
     (a device index), each pixel's position among them (a device index),
-    their count). Computed on the host from the host label map."""
+    their count). Computed on the host from the host label map, then
+    uploaded strip by strip."""
     h = labels.shape[0]
-    plan = []
+    host = []
     for y0 in range(0, h, _STRIP):
         rows = min(_STRIP, h - y0)
         present, local = np.unique(labels[y0 : y0 + rows],
                                    return_inverse=True)
-        local = torch.from_numpy(local.reshape(-1).astype(np.int64)).to(device)
-        plan.append((y0, rows, torch.from_numpy(present.astype(np.int64))
-                     .to(device), local, len(present)))
+        host.append((y0, rows, present.astype(np.int64),
+                     local.reshape(-1).astype(np.int64)))
+    plan = []
+    with record_span("wait.strip_plan", count=2 * len(host)):
+        for y0, rows, present, local in host:
+            local_t = torch.from_numpy(local).to(device)
+            plan.append((y0, rows, torch.from_numpy(present).to(device),
+                         local_t, len(present)))
     return plan
 
 
@@ -317,7 +324,9 @@ def _matmul_costs(cur_lab, refs, labels: np.ndarray, n_regions: int, cand,
     acc_var = torch.zeros((n_regions, 4 * n_ref, n_cand), dtype=ACC,
                           device=dev)
     acc_fix = torch.zeros((n_regions, 3), dtype=ACC, device=dev)
-    for y0, rows, present, local, n_p in _strip_plan(labels, dev):
+    plan = _strip_plan(labels, dev)
+    chunks = 0
+    for y0, rows, present, local, n_p in plan:
         L = torch.nn.functional.one_hot(local, n_p).to(ACC)  # (P, n_p)
         cur_s = cur_lab[y0 : y0 + rows].reshape(rows * w, 1, c)
         a = cur_s[:, 0, 0]
@@ -337,6 +346,8 @@ def _matmul_costs(cur_lab, refs, labels: np.ndarray, n_regions: int, cand,
             F = F.to(ACC)
             acc_var[present, :, k0 : k0 + d.shape[0]] += (L.t() @ F).view(
                 n_p, 4 * n_ref, d.shape[0])
+            chunks += 1
+    note(strips=len(plan), chunks=chunks)
     var = acc_var.permute(2, 0, 1)                      # (n_cand, n_reg, 4k)
     out = []
     for off in range(0, 4 * n_ref, 4):
@@ -415,8 +426,9 @@ def _grid_refine(cur_lab, ref_lab, labels, perm, bounds, n_regions: int,
     sub_costs = coeff_mad * mad - coeff_zncc * zncc   # (n_sub, n_regions)
     sbest = torch.argmin(sub_costs, dim=0)
     best_cost = sub_costs.gather(0, sbest[None, :])[0]
-    best_d = best_d + torch.as_tensor(sub_np, dtype=dt, device=dev)[sbest]
-    return best_d, best_cost
+    with record_span("wait.grid_refine"):
+        offsets = torch.as_tensor(sub_np, dtype=dt, device=dev)
+    return best_d + offsets[sbest], best_cost
 
 
 def _subpixel_refine(cur_lab, ref_lab, labels, perm, bounds, n_regions: int,
@@ -458,7 +470,8 @@ def _argmin_and_refine(costs, cur_lab, ref_lab, labels, perm, bounds,
     with no pixel on the half-resolution grid) and :func:`_local_refine`
     -> (uv (n_regions, 2), cost)."""
     cand_np = method_candidates(method, search_range)
-    cand = torch.as_tensor(cand_np, device=cur_lab.device)
+    with record_span("wait.argmin"):
+        cand = torch.as_tensor(cand_np, device=cur_lab.device)
     costs = costs[: len(cand_np)]
     best = torch.argmin(costs, dim=0)        # first minimum, as jnp.argmin
     best_cost = costs.gather(0, best[None, :])[0]
@@ -486,8 +499,22 @@ def _plan(cur_lab, labels, n_regions: int, method: str):
     labels = np.asarray(labels)
     dev = cur_lab.device
     perm, bounds = region_reduction_plan(labels, n_regions)
-    return (labels, torch.from_numpy(labels.astype(np.int64)).to(dev),
-            torch.from_numpy(perm).to(dev), torch.from_numpy(bounds).to(dev))
+    labels_64 = labels.astype(np.int64)
+    with record_span("wait.plan", count=3):
+        return (labels, torch.from_numpy(labels_64).to(dev),
+                torch.from_numpy(perm).to(dev),
+                torch.from_numpy(bounds).to(dev))
+
+
+def _device_candidates(method: str, search_range: int, chunk: int,
+                       n_regions: int, device) -> torch.Tensor:
+    """``method``'s candidates padded to the chunk, on ``device``; notes
+    their count (before padding) and the regions on the search's span."""
+    cand_np = method_candidates(method, search_range)
+    note(candidates=len(cand_np), regions=n_regions)
+    with record_span("wait.candidates"):
+        return torch.as_tensor(padded_candidates(cand_np, chunk),
+                               device=device)
 
 
 def match_chunk(method: str, chunk: int) -> int:
@@ -506,9 +533,8 @@ def _match_device(cur_lab, ref_lab, labels, n_regions: int, search_range,
     n_regions = int(n_regions)
     search_range = int(search_range)
     chunk = match_chunk(method, chunk)
-    cand = torch.as_tensor(padded_candidates(
-        method_candidates(method, search_range), chunk),
-        device=cur_lab.device)
+    cand = _device_candidates(method, search_range, chunk, n_regions,
+                              cur_lab.device)
     coeffs = (float(coeff_mad), float(coeff_zncc))
     if method == "gather":
         costs = _integer_costs(cur_lab, ref_lab, perm, bounds, n_regions,
@@ -539,9 +565,8 @@ def _match_device_bidirectional(cur_lab, refp_lab, refn_lab, labels,
     n_regions = int(n_regions)
     search_range = int(search_range)
     chunk = match_chunk(method, chunk)
-    cand = torch.as_tensor(padded_candidates(
-        method_candidates(method, search_range), chunk),
-        device=cur_lab.device)
+    cand = _device_candidates(method, search_range, chunk, n_regions,
+                              cur_lab.device)
     coeffs = (float(coeff_mad), float(coeff_zncc))
     refs = (refp_lab, refn_lab)
     costs_pair = method_costs(method, cur_lab, list(refs), labels_np,

@@ -176,8 +176,9 @@ def dense_flow_stream(
             u = u.cpu().numpy()
             v = v.cpu().numpy()
             state.prev_flow = (u, v)
-            tel.event("stream.dense", frame=i, mean_u=float(u.mean()),
-                      mean_v=float(v.mean()))
+            if tel.enabled:
+                tel.event("stream.dense", frame=i, mean_u=float(u.mean()),
+                          mean_v=float(v.mean()))
             yield gray_np, u, v
         state.prev_gray = gray_np
         prev = gray

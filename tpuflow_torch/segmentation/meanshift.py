@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from tpuflow_torch.kernels import ms_filter
+from tpuflow_torch.utils.telemetry import record_span
 
 
 def _color_sentinel(lab: torch.Tensor,
@@ -284,9 +285,12 @@ def segment_meanshift_async(
 ):
     """:func:`segment_meanshift` split into the device filter, launched
     now, and a zero-argument ``finalize`` that fetches its output and runs
-    the host labeling. A caller queues other device work in between, so
-    the labeling overlaps it (optical_flow_block_matching queues the middle
-    frame's matching and refinement behind the new frame's filter).
+    the host labeling. A caller may queue other device work in between;
+    ``finalize`` waits for the filter's output only, so the labeling
+    overlaps whatever of that work the card still has queued
+    (optical_flow_block_matching queues the middle frame's search behind
+    the new frame's filter, but the search drains the card before it
+    labels).
 
     ``scale > 1`` segments the stride-``scale`` subsampled frame with the
     spatial kernel and min_size scaled to match, then nearest-replicates
@@ -336,7 +340,8 @@ def segment_meanshift_async(
 
     def finalize() -> SegmentationResult:
         if ready is not None:
-            ready.synchronize()
+            with record_span("wait.filter"):
+                ready.synchronize()
         pos_np = pos.numpy()
         col_np = col.numpy()
         labels, n = _merge_labels(pos_np, col_np, float(kernel_spatial),

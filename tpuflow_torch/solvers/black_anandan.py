@@ -41,6 +41,7 @@ from tpuflow_torch.pyramid import (
 )
 from tpuflow_torch.solvers.mestimators import geman_mcclure_psi, geman_mcclure_rho
 from tpuflow_torch.utils.numerics import true_div
+from tpuflow_torch.utils.telemetry import record_span
 
 LAMBDA_D = 5.0
 LAMBDA_S = 1.0
@@ -193,33 +194,37 @@ def coarse_to_fine(it_img, itp1_img, max_int, param, iter_max, iter_scale,
     LevelDown, per-level budget (level+1) * 10 * max(W0, H0) * iter_scale
     (capped by ``iter_max`` > 0), prolongation. ``solve_level(level, u0,
     v0, gx, gy, it_l, sigma_d, sigma_s, iters)`` relaxes one level and
-    returns (u, v)."""
+    returns (u, v). Traced as the spans ``ba.pyramid`` and ``ba.level``
+    (one a level; :class:`tpuflow_torch.utils.telemetry.record_span`)."""
     if param is None:
         param = MultipleMotionParam()
-    it_levels = pyramider(true_div(it_img, max_int), param.level)
-    itp1_levels = pyramider(true_div(itp1_img, max_int), param.level)
-    max_level = len(it_levels) - 1  # may stop early on tiny images
-    dt_levels = dt_pyramid(it_levels, itp1_levels)
-    grad_levels = grad_pyramid(it_levels)
+    dev = it_img.device
+    with record_span("ba.pyramid", device=dev):
+        it_levels = pyramider(true_div(it_img, max_int), param.level)
+        itp1_levels = pyramider(true_div(itp1_img, max_int), param.level)
+        max_level = len(it_levels) - 1  # may stop early on tiny images
+        dt_levels = dt_pyramid(it_levels, itp1_levels)
+        grad_levels = grad_pyramid(it_levels)
 
     h0, w0 = it_img.shape
     u = v = None
     for level in range(max_level, -1, -1):
-        sigma_d, sigma_s = level_sigmas(level, max_level)
-        gx, gy = grad_levels[level]
-        if level < max_level:
-            it_l = level_down(it_levels[level], itp1_levels[level], u, v)
-        else:
-            it_l = dt_levels[level]
-        iters = int((level + 1) * 10 * max(w0, h0) * iter_scale)
-        if iter_max > 0:
-            iters = min(iters, iter_max)
-        u_l, v_l = solve_level(level, torch.zeros_like(it_l),
-                               torch.zeros_like(it_l), gx, gy, it_l,
-                               sigma_d, sigma_s, iters)
-        if level < max_level:
-            u_l, v_l = add_vector_offset(u_l, v_l, u, v)
-        u, v = u_l, v_l
+        with record_span("ba.level", device=dev, level=level):
+            sigma_d, sigma_s = level_sigmas(level, max_level)
+            gx, gy = grad_levels[level]
+            if level < max_level:
+                it_l = level_down(it_levels[level], itp1_levels[level], u, v)
+            else:
+                it_l = dt_levels[level]
+            iters = int((level + 1) * 10 * max(w0, h0) * iter_scale)
+            if iter_max > 0:
+                iters = min(iters, iter_max)
+            u_l, v_l = solve_level(level, torch.zeros_like(it_l),
+                                   torch.zeros_like(it_l), gx, gy, it_l,
+                                   sigma_d, sigma_s, iters)
+            if level < max_level:
+                u_l, v_l = add_vector_offset(u_l, v_l, u, v)
+            u, v = u_l, v_l
     return u, v
 
 

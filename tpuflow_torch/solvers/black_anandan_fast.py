@@ -35,6 +35,7 @@ from tpuflow_torch.solvers.black_anandan import (
     irls_energy,
     irls_sup,
 )
+from tpuflow_torch.utils.telemetry import note, record_span
 
 
 def irls_level_fast(
@@ -60,21 +61,27 @@ def irls_level_fast(
     n_blocks = -(-iter_max // fuse)
     trace = [math.nan] * max(-(-n_blocks // blocks_per_check), 1)
     u, v = u0, v0
-    E, inc, b = 0.0, 0, 0
+    E, inc, b, checks = 0.0, 0, 0, 0
+    stopped = "budget"
     while b < n_blocks:
         u, v = irls_sweeps(u, v, gx, gy, it, sup_x, sup_y, fuse,
                            LAMBDA_D, LAMBDA_S, sigma_d, sigma_s)
         b += 1
         if b % blocks_per_check:
             continue
-        E_new = irls_energy(u, v, gx, gy, it, LAMBDA_D, LAMBDA_S,
-                            sigma_d, sigma_s).item()  # host sync
+        energy = irls_energy(u, v, gx, gy, it, LAMBDA_D, LAMBDA_S,
+                             sigma_d, sigma_s)
+        with record_span("wait.ba_check"):
+            E_new = energy.item()  # host sync
+        checks += 1
         if not is_level0:
             inc = inc + 1 if E_new > E else 0
         E = E_new
         trace[b // blocks_per_check - 1] = E
         if E < threshold or inc > 3:
+            stopped = "threshold" if E < threshold else "strikes"
             break
+    note(blocks=b, checks=checks, stopped=stopped)
     return u, v, E, b, torch.tensor(trace, dtype=u0.dtype)
 
 
@@ -107,5 +114,6 @@ def optical_flow_pyramid_fast(
         emit_energy_trace(level, trace, every, every, energy_trace)
         return u, v
 
-    return coarse_to_fine(it_img, itp1_img, max_int, param, iter_max,
-                          iter_scale, solve_level)
+    with record_span("ba.frame"):
+        return coarse_to_fine(it_img, itp1_img, max_int, param, iter_max,
+                              iter_scale, solve_level)
