@@ -7,14 +7,15 @@ Phases, each printing one line of its own numbers:
 
 1. device  — the card's name and power limit; TF32 off for the plain
    float32 references.
-2. build   — builds the seven CUDA sources of ``tpuflow_torch/csrc`` (one
+2. build   — builds the eight CUDA sources of ``tpuflow_torch/csrc`` (one
    nvcc each, all started together, into ``build/tpuflow_torch``) and
    reports seconds and ptxas usage (registers, spills), which the rows of
    ``hs_sweeps``, ``irls_sweeps``, ``irls_gated_sweeps``,
    ``hs_tile_sweeps``, ``irls_tile_sweeps``, ``sep_conv2d_valid`` and the
    resident pair log beside the blocks per SM that CUDA's occupancy
    calculator gives their launch.
-3. kernels — each of the eleven kernels against its plain PyTorch version
+3. kernels — each of the eleven ported kernels and the region matcher's
+   sums (``bm_cost``) against its plain PyTorch version
    on the card, on float32 inputs from a numpy seed, with both versions'
    device times (``cuda_ms(..., device_only=True)``), the least time the
    card could take for the same work (``bound_ms``: the bytes over 3.35
@@ -83,7 +84,15 @@ Phases, each printing one line of its own numbers:
    filter's drift and trajectory outputs at 376x1240 (MS_EXTRA_ITERS
    iterations), bitwise their plain
    version, pos and col bitwise the launch without them. Each with ms,
-   bound, blocks per SM, registers, spills and launches.
+   bound, blocks per SM, registers, spills and launches. The region
+   matcher's sums (``bm_cost_rows``): both directions of the Voronoi pan's
+   middle frame at 376x1240, its BM_CELLS cells as labels, search 61,
+   every float64 sum within SUM_RTOL of the plain version on the card and
+   each direction's winners equal, the kernel's device ms beside
+   ``bm_cost_bound`` (the float32-to-float64 conversions at 16 a clock per
+   SM bind; the float64 adds, float32 operations and bytes logged beside
+   them) and its share, the plain version's ms, the wrapper's ms (labels
+   to the card, their sort, the two launches) and the launches.
 4. main    — each main path runs once through the public entry points,
    with every launch counter set to 0 just before it and read just after;
    each counter must show its kernel ran exactly as often as that path
@@ -126,6 +135,9 @@ Phases, each printing one line of its own numbers:
    EPE against the known pan beside its share of regions whose winner
    equals the exhaustive search's), and on BM_CROP at BM_CROP_SEARCH
    against the float32 CPU: equal winners, costs within EVAL_COST_TOL.
+   The default pairs and each profile's launch ``bm_cost`` twice a pair
+   (the sums, then the combine), and its row runs again on pair 2's own
+   segmentation.
 6. lk      — Lucas-Kanade, each path run once through its entry point
    with the counters zeroed just before and read just after (the launches
    join the main paths'): ``solvers.good_features_to_track(500, 0.01,
@@ -462,6 +474,14 @@ BLUR_AB = BLUR_CASES[:3]
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores.
 PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
+# The H100 SXM's SMs and boost clock, and what one SM does a clock
+# (NVIDIA's CUDA programming guide, compute capability 9.0): 16
+# float32-to-float64 conversions, 64 float64 adds. bm_cost_bound's terms.
+SMS, BOOST_HZ = 132, 1.98e9
+CVT_F64_PER_CLK, ADD_F64_PER_CLK = 16, 64
+# The region matcher's sums (kernels/bm_cost) against their plain version
+# on the card: float64 sums of the same float32 fields in two orders.
+SUM_RTOL = 1e-12
 # Tolerances, as max|d| <= TOL * max(1, max|reference|).
 # Kernel vs its plain version on the card: both compute in float32 and
 # round after every operation (the kernels are built with -fmad=false and
@@ -622,6 +642,25 @@ def gated_bound(labels: np.ndarray, sweeps, batch):
              + int((labels[1:] == labels[:-1]).sum()))
     ops = sweeps * batch * (26 * px + 29 * edges)
     return bound(4 * px * (5 * batch + 3), ops)
+
+
+def bm_cost_bound(n_pix, n_cand, n_ref, n_regions):
+    # Per evaluation (pixel, candidate, reference): the L1 field (3
+    # subtractions, 2 adds, 1 multiply; the absolute values are operand
+    # modifiers) and b*b, a*b (2): 8 float32 operations; 4 conversions to
+    # float64 and 4 float64 adds. Bytes: the planar frames (3 floats a
+    # pixel and frame), the sort (8 a pixel) read once, the float64 table
+    # written once. The conversions bind: 16 a clock per SM.
+    evals = n_pix * n_cand * n_ref
+    terms = {"conversions_ms": 4 * evals / (SMS * CVT_F64_PER_CLK * BOOST_HZ),
+             "f64_adds_ms": 4 * evals / (SMS * ADD_F64_PER_CLK * BOOST_HZ),
+             "f32_ops_ms": 8 * evals / PEAK_F32_PER_S,
+             "bytes_ms": (4 * 3 * (n_ref + 1) * n_pix + 8 * n_pix
+                          + 8 * n_regions * 4 * n_ref * n_cand)
+             / PEAK_BYTES_PER_S}
+    terms = {k: 1e3 * v for k, v in terms.items()}
+    by = max(terms, key=terms.get)
+    return {"bound_ms": terms[by], "bound_by": by[:-3], **terms}
 
 
 def ms_bound(shape, R, query_iterations):
@@ -838,14 +877,16 @@ def phase_build() -> None:
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from tpuflow_torch.kernels import (_build, fb_kernels, hs_stencil,
-                                       irls_stencil, ms_filter, sepconv)
+    from tpuflow_torch.kernels import (_build, bm_cost, fb_kernels,
+                                       hs_stencil, irls_stencil, ms_filter,
+                                       sepconv)
 
     mods = {"hs_stencil": hs_stencil._lib,
             "hs_resident": hs_stencil._lib_resident,
             "irls_stencil": irls_stencil._lib,
             "irls_gated": irls_stencil._lib_gated, "sepconv": sepconv._lib,
-            "fb_kernels": fb_kernels._lib, "ms_filter": ms_filter._lib}
+            "fb_kernels": fb_kernels._lib, "ms_filter": ms_filter._lib,
+            "bm_cost": bm_cost._lib}
 
     def build(name):
         t0 = time.perf_counter()
@@ -1367,6 +1408,75 @@ def phase_kernels_flagship(dev, out) -> None:
                     shape=shape, batch=batch, fuse=deep)
 
     ms_rows(dev, out)
+    bm_cost_rows(dev, out)
+
+
+def bm_cost_rows(dev, out) -> None:
+    """:func:`bm_cost_row` on the Voronoi pan, its middle frame's
+    BM_CELLS cells as the labels."""
+    from tpuflow_torch.solvers import bm_flow
+
+    frames, cells = voronoi_frames()
+    labels, n = crop_labels(cells)
+    bm_cost_row(dev, out, "kernels", [bm_flow._to_lab(f, 255.0)[1]
+                                      for f in frames], labels, n)
+
+
+def bm_cost_row(dev, out, phase, labs, labels, n, search_range=61) -> None:
+    """The region matcher's sums (kernels/bm_cost) at the flagship's
+    search on the middle of three Lab frames against both neighbours: the
+    kernel's two launches against the plain version on the card (every
+    sum within SUM_RTOL, each direction's winners equal), the kernel's
+    device ms beside bm_cost_bound and the plain version's ms (host clock
+    around one synced call), the whole wrapper's ms (labels to the card,
+    sort, launches; host clock), launches, and blocks per SM, registers and
+    spills."""
+    import torch
+
+    from tpuflow_torch.blockmatching import matcher
+    from tpuflow_torch.kernels import bm_cost
+
+    cur, prev, nxt = [x.to(dev) for x in labs]
+    cand_np = matcher.method_candidates("matmul", search_range)
+    chunk = matcher.match_chunk("matmul", 16)
+    cand = torch.as_tensor(matcher.padded_candidates(cand_np, chunk),
+                           device=dev)
+    args = (cur, [prev, nxt], labels, n, cand, chunk, search_range // 2)
+    before = bm_cost.LAUNCHES
+    got = bm_cost.region_sums(*args)
+    torch.cuda.synchronize()
+    launches = bm_cost.LAUNCHES - before
+    t0 = time.perf_counter()
+    want = matcher._matmul_sums(*args)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = max(float(((a - b).abs() / b.abs().clamp_min(1e-300)).max())
+              for a, b in zip(got, want))
+    if not err <= SUM_RTOL:
+        raise AssertionError(f"bm_cost {phase}: sums max rel |d| {err}")
+    for k, (a, b) in enumerate(zip(matcher._sums_costs(*got, 1.0, 0.5),
+                                   matcher._sums_costs(*want, 1.0, 0.5))):
+        wa = torch.argmin(a[: len(cand_np)], 0)
+        wb = torch.argmin(b[: len(cand_np)], 0)
+        if not torch.equal(wa, wb):
+            raise AssertionError(f"bm_cost {phase}: direction {k} winners "
+                                 f"differ at {int((wa != wb).sum())} regions")
+    del got, want
+    seg_plan = bm_cost.plan(labels, n, dev)
+    ms = cuda_ms(lambda: bm_cost.launch(cur, [prev, nxt], seg_plan, n, cand,
+                                        False), device_only=True)
+    wrapper_ms = synced_ms(lambda: bm_cost.region_sums(*args))
+    work = bm_cost_bound(labels.size, len(cand_np), 2, n)
+    row = {"max_rel_err_sums": err, "winners_equal": True, "ms": ms,
+           "plain_ms": plain_ms, **work,
+           "share": work["bound_ms"] / ms, "library_ms": None}
+    log(phase, kernel="bm_cost", shape=tuple(labels.shape),
+        search_range=search_range, regions=n, candidates=len(cand_np),
+        directions=2, launches=launches, wrapper_ms=wrapper_ms, **row,
+        **kernel_usage("bm_cost_kernel", bm_cost.blocks_per_sm(2, False),
+                       "ILi2ELb0E"))
+    out.setdefault("bm_cost", {**row, "launches": launches})
+    torch.cuda.synchronize()
 
 
 def launched(kernel: str, fn, expected: int, **what) -> int:
@@ -2353,24 +2463,35 @@ def phase_bm(dev, frames, outs, state, profiles) -> None:
             labels_winners_t_equal=True, max_abs_err_vs_cpu=err,
             chip_host_cpu_f32_ms_two_pairs=cpu_ms)
 
+    from tpuflow_torch.kernels import bm_cost
+    from tpuflow_torch.solvers import bm_flow
     from tpuflow_torch.solvers.bm_flow import BMFlowState
 
     for profile in (None, *BM_PROFILES):
         times = []
         for _ in range(2):
             st = BMFlowState()
-            pair_ms = []
+            pair_ms, launches = [], []
             for k in (0, 1):
+                before = bm_cost.LAUNCHES
                 t0 = time.perf_counter()
                 bm_pair(frames, k, st, dev, profile=profile)
                 torch.cuda.synchronize()
                 pair_ms.append(1e3 * (time.perf_counter() - t0))
+                launches.append(bm_cost.LAUNCHES - before)
             times.append(pair_ms)
+        if launches != [2, 2]:
+            raise AssertionError(f"flagship {profile}: bm_cost launches "
+                                 f"{launches} a pair, expected [2, 2]")
         log("bm", shape=BM_SHAPE, profile=profile or "default",
             card_ms_pair1_cold=[t[0] for t in times],
-            card_ms_pair2_bidirectional=[t[1] for t in times])
+            card_ms_pair2_bidirectional=[t[1] for t in times],
+            bm_cost_launches_pair=launches)
         if profile is None:
             profile_pair(frames, st, dev)
+    seg = state.segmentations[1]
+    bm_cost_row(dev, {}, "bm", [bm_flow._to_lab(f, 255.0)[1]
+                                for f in frames], seg.labels, seg.n_regions)
     t0 = time.perf_counter()
     phase_bm_methods(dev, frames, state)
     log("bm", evaluators_seconds=time.perf_counter() - t0)

@@ -298,6 +298,33 @@ def test_search_counts_its_chunks(flagship_runs):
         assert strip.fields == {"count": 2 * f["strips"]}
 
 
+def test_search_counts_its_launches(three_frames):
+    """On the card the search's sums are csrc/bm_cost.cu's two launches a
+    call, which the span notes as ``launches`` in place of the plain
+    loop's ``strips`` and ``chunks``; bm_cost.LAUNCHES counts them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the bm_cost kernel has no CPU form")
+    from tpuflow_torch.kernels import bm_cost
+
+    def run():
+        out1, state = bm_flow.optical_flow_block_matching(
+            three_frames[0], three_frames[1], device="cuda", **FLAGSHIP_KW)
+        bm_flow.optical_flow_block_matching(
+            three_frames[1], three_frames[2], state=state, device="cuda",
+            **FLAGSHIP_KW)
+
+    before = bm_cost.LAUNCHES
+    _, spans = _recorded(run)
+    searches = [s for s in spans if s.name == "bm.search"]
+    assert len(searches) == 2
+    for s in searches:
+        assert s.fields["launches"] == 2
+        assert "strips" not in s.fields and "chunks" not in s.fields
+        assert [c.name for c in spans if c.parent == s.index][:3] == [
+            "wait.plan", "wait.candidates", "wait.sums_labels"]
+    assert bm_cost.LAUNCHES - before == 4
+
+
 def test_ba_outputs_bitwise_with_recording(ba_pair):
     plain_blocks, traced_blocks = [], []
     want = _ba(ba_pair, plain_blocks)

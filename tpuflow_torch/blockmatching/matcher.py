@@ -9,12 +9,15 @@ reference's ``get_zeropad``).
 
 The integer-search evaluators, as in tpuflow (:data:`METHODS`):
 
-- ``"matmul"`` (default): per 32-row strip, the region one-hot matrix L
-  (strip pixels x regions present in the strip) reduces every candidate
-  chunk's moment fields in ONE ``L^T @ F`` product, in float64
-  (:data:`ACC`; the fields are cast up first, so on the card it is a
-  float64 GEMM, slower than tpuflow's float32 one); the shifted reference
-  is one gather per chunk from a zero-padded copy;
+- ``"matmul"`` (default): every region's float64 (:data:`ACC`) moment
+  sums for every candidate, from
+  :func:`tpuflow_torch.kernels.bm_cost.region_sums`: on the card one
+  hand-written kernel (``csrc/bm_cost.cu``) over the whole candidate
+  list; on the CPU its plain version :func:`_matmul_sums`, where per
+  32-row strip the region one-hot matrix L (strip pixels x regions present
+  in the strip) reduces every candidate chunk's moment fields in ONE
+  ``L^T @ F`` product, the shifted reference one gather per chunk from a
+  zero-padded copy;
 - ``"matmul_bf16"``: the same, with the per-candidate moment fields
   rounded to bfloat16 first (tpuflow's ``mxu_dtype``), then summed exactly
   as the others are;
@@ -45,9 +48,10 @@ run). The candidate list is padded with (0, 0) fillers to a multiple of
 the chunk (:func:`padded_candidates`, tpuflow's ``_padded_candidates``),
 so every chunk's product has the same shape and contents whether one
 device scores the whole list or a mesh rank scores its slice
-(:mod:`tpuflow_torch.dist.bm`): the two agree bitwise. tpuflow's
-``region_bucket``/``pad_region_bounds``, which dodge XLA recompiles, are
-not ported: the port works with the true region count.
+(:mod:`tpuflow_torch.dist.bm`): the two agree bitwise (the card's kernel
+sums each candidate in an order of its own, so its columns agree too).
+tpuflow's ``region_bucket``/``pad_region_bounds``, which dodge XLA
+recompiles, are not ported: the port works with the true region count.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ import numpy as np
 import torch
 
 from tpuflow_torch.core.color import LAB_SCALE as _LAB_SCALE
+from tpuflow_torch.kernels import bm_cost
 from tpuflow_torch.utils.telemetry import note, record_span
 
 #: The integer-search evaluators (tpuflow's, in its order).
@@ -301,18 +306,18 @@ def _strip_plan(labels: np.ndarray, device):
     return plan
 
 
-def _matmul_costs(cur_lab, refs, labels: np.ndarray, n_regions: int, cand,
-                  coeff_mad: float, coeff_zncc: float, chunk: int,
-                  radius: int, bf16: bool = False):
-    """The strip one-hot evaluator for one or more reference frames
-    matched against the same current frame and labels: the
+def _matmul_sums(cur_lab, refs, labels: np.ndarray, n_regions: int, cand,
+                 chunk: int, radius: int, bf16: bool = False):
+    """The strip one-hot evaluator's region sums for one or more reference
+    frames matched against the same current frame and labels, the plain
+    version of :func:`tpuflow_torch.kernels.bm_cost.region_sums`: the
     candidate-invariant current-frame moments reduce once per strip, and
     each candidate chunk builds 4 channels per reference
     (L1, b, b^2, a*b) and reduces them in one ``L^T @ F`` product over the
     regions present in the strip. ``bf16`` rounds those 4 channels to
     bfloat16 before the sum (tpuflow's ``mxu_dtype``; the one-hot L and
-    the current-frame moments stay exact). Returns one (n_cand, n_regions)
-    cost table per reference, each equal to a single-reference call."""
+    the current-frame moments stay exact). Returns (acc_var (n_regions,
+    4 n_ref, n_cand), acc_fix (n_regions, 3): n, sum a, sum a^2)."""
     dev = cur_lab.device
     h, w, c = cur_lab.shape
     R = radius
@@ -348,9 +353,29 @@ def _matmul_costs(cur_lab, refs, labels: np.ndarray, n_regions: int, cand,
                 n_p, 4 * n_ref, d.shape[0])
             chunks += 1
     note(strips=len(plan), chunks=chunks)
+    return acc_var, acc_fix
+
+
+def _matmul_costs(cur_lab, refs, labels: np.ndarray, n_regions: int, cand,
+                  coeff_mad: float, coeff_zncc: float, chunk: int,
+                  radius: int, bf16: bool = False):
+    """The matmul evaluator for one or more reference frames matched
+    against the same current frame and labels: the region sums of
+    :func:`tpuflow_torch.kernels.bm_cost.region_sums` (on a CUDA tensor
+    the kernel, on a CPU tensor :func:`_matmul_sums`), then the MAD + ZNCC
+    cost of each. Returns one (n_cand, n_regions) cost table per
+    reference, each equal to a single-reference call."""
+    return _sums_costs(*bm_cost.region_sums(cur_lab, refs, labels,
+                                            n_regions, cand, chunk, radius,
+                                            bf16), coeff_mad, coeff_zncc)
+
+
+def _sums_costs(acc_var, acc_fix, coeff_mad: float, coeff_zncc: float):
+    """One (n_cand, n_regions) MAD + ZNCC cost table per reference from
+    the region sums of :func:`_matmul_sums` / ``bm_cost.region_sums``."""
     var = acc_var.permute(2, 0, 1)                      # (n_cand, n_reg, 4k)
     out = []
-    for off in range(0, 4 * n_ref, 4):
+    for off in range(0, var.shape[-1], 4):
         mad, zncc, _ = _cost_core(acc_fix[:, 0], var[..., off],
                                   acc_fix[:, 1], var[..., off + 1],
                                   acc_fix[:, 2], var[..., off + 2],

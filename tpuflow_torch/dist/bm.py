@@ -8,9 +8,10 @@ candidate list (:func:`~tpuflow_torch.blockmatching.matcher.padded_candidates`,
 (0, 0) fillers to a chunk multiple per rank), and the (n_local,
 n_regions) float64 cost tables are all-gathered over the mesh's group in
 global candidate order. The argmin and refinement tail then runs on every
-rank. Each chunk of candidates is scored by the same product as on one
-device, so the result is bitwise the single-device search, for every
-method; only O(n_cand x n_regions) floats cross the mesh.
+rank. Each candidate is scored as on one device (on the CPU by the same
+chunk product, on the card by the same per-candidate sums of
+``csrc/bm_cost.cu``), so the result is bitwise the single-device search,
+for every method; only O(n_cand x n_regions) floats cross the mesh.
 """
 
 from __future__ import annotations
