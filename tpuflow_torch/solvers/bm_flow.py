@@ -752,16 +752,39 @@ class BMFlowOutput:
     bidirectional: bool = False
 
 
+def _region_sums(rgb_norm: np.ndarray,
+                 seg: SegmentationResult) -> np.ndarray:
+    """Per-region colour sums, float64 (n_regions, 3), added in pixel
+    order: ``np.bincount`` adds each weight into its bin in index order,
+    in double, so the sums are ``np.add.at``'s bit for bit, without its
+    slow path for a 2-D target."""
+    flat = seg.labels.reshape(-1)
+    channels = rgb_norm.reshape(-1, 3).T.astype(np.float64, order="C")
+    return np.stack([np.bincount(flat, weights=c, minlength=seg.n_regions)
+                     for c in channels], axis=-1)
+
+
 def _quantize_colors(rgb_norm: np.ndarray,
                      seg: SegmentationResult) -> np.ndarray:
     """Per-region mean colour, x255, clipped (the colour-quantized side
     output, OpticalFlow_BlockMatching.cpp:154-181)."""
-    flat = seg.labels.reshape(-1)
-    sums = np.zeros((seg.n_regions, 3))
-    np.add.at(sums, flat, rgb_norm.reshape(-1, 3))
-    counts = np.maximum(np.bincount(flat, minlength=seg.n_regions), 1)
+    sums = _region_sums(rgb_norm, seg)
+    counts = np.maximum(np.bincount(seg.labels.reshape(-1),
+                                    minlength=seg.n_regions), 1)
     means = np.clip(sums / counts[:, None] * 255.0, 0, 255)
-    return means[seg.labels].astype(np.uint8)
+    # The cast is elementwise: cast the table, then gather bytes.
+    return np.take(means.astype(np.uint8), seg.labels, axis=0)
+
+
+def _shift_vector(shift_spatial: np.ndarray) -> np.ndarray:
+    """The mean-shift side output: each pixel's converged (x, y) less its
+    own (x, y), float64 (H, W, 2)."""
+    h, w = shift_spatial.shape[:2]
+    shift = np.empty((h, w, 2))
+    np.subtract(shift_spatial[..., 0], np.arange(w), out=shift[..., 0])
+    np.subtract(shift_spatial[..., 1], np.arange(h)[:, None],
+                out=shift[..., 1])
+    return shift
 
 
 def _to_lab(rgb: np.ndarray, max_int: float):
@@ -995,10 +1018,7 @@ def optical_flow_block_matching_async(
         with record_span("bm.side_outputs"):
             state.push(itp1_lab, itp1_norm.numpy(), seg_new)
             quantized = _quantize_colors(itp1_norm.numpy(), seg_new)
-            xy = np.mgrid[0 : seg.labels.shape[0], 0 : seg.labels.shape[1]]
-            shift = np.stack([seg_new.shift_spatial[..., 0] - xy[1],
-                              seg_new.shift_spatial[..., 1] - xy[0]],
-                             axis=-1)
+            shift = _shift_vector(seg_new.shift_spatial)
 
     def finalize() -> BMFlowOutput:
         with record_span("bm.fetch"):
