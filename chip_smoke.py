@@ -1428,9 +1428,9 @@ def bm_cost_row(dev, out, phase, labs, labels, n, search_range=61) -> None:
     kernel's two launches against the plain version on the card (every
     sum within SUM_RTOL, each direction's winners equal), the kernel's
     device ms beside bm_cost_bound and the plain version's ms (host clock
-    around one synced call), the whole wrapper's ms (labels to the card,
-    sort, launches; host clock), launches, and blocks per SM, registers and
-    spills."""
+    around one synced call), the plan and the wrapper's ms (the labels to
+    the card and sorted there by matcher.region_plan, then the launches;
+    host clock), launches, and blocks per SM, registers and spills."""
     import torch
 
     from tpuflow_torch.blockmatching import matcher
@@ -1441,13 +1441,16 @@ def bm_cost_row(dev, out, phase, labs, labels, n, search_range=61) -> None:
     chunk = matcher.match_chunk("matmul", 16)
     cand = torch.as_tensor(matcher.padded_candidates(cand_np, chunk),
                            device=dev)
-    args = (cur, [prev, nxt], labels, n, cand, chunk, search_range // 2)
+    plan = matcher.region_plan(labels, n, dev)
+    seg = (plan.perm, plan.bounds, plan.seg_end)
     before = bm_cost.LAUNCHES
-    got = bm_cost.region_sums(*args)
+    got = bm_cost.region_sums(cur, [prev, nxt], labels, seg, n, cand, chunk,
+                              search_range // 2)
     torch.cuda.synchronize()
     launches = bm_cost.LAUNCHES - before
     t0 = time.perf_counter()
-    want = matcher._matmul_sums(*args)
+    want = bm_cost._matmul_sums(cur, [prev, nxt], labels, n, cand, chunk,
+                                search_range // 2)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
     err = max(float(((a - b).abs() / b.abs().clamp_min(1e-300)).max())
@@ -1462,10 +1465,16 @@ def bm_cost_row(dev, out, phase, labs, labels, n, search_range=61) -> None:
             raise AssertionError(f"bm_cost {phase}: direction {k} winners "
                                  f"differ at {int((wa != wb).sum())} regions")
     del got, want
-    seg_plan = bm_cost.plan(labels, n, dev)
-    ms = cuda_ms(lambda: bm_cost.launch(cur, [prev, nxt], seg_plan, n, cand,
+    ms = cuda_ms(lambda: bm_cost.launch(cur, [prev, nxt], seg, n, cand,
                                         False), device_only=True)
-    wrapper_ms = synced_ms(lambda: bm_cost.region_sums(*args))
+
+    def planned_sums():
+        p = matcher.region_plan(labels, n, dev)
+        return bm_cost.region_sums(cur, [prev, nxt], labels,
+                                   (p.perm, p.bounds, p.seg_end), n, cand,
+                                   chunk, search_range // 2)
+
+    wrapper_ms = synced_ms(planned_sums)
     work = bm_cost_bound(labels.size, len(cand_np), 2, n)
     row = {"max_rel_err_sums": err, "winners_equal": True, "ms": ms,
            "plain_ms": plain_ms, **work,

@@ -166,8 +166,9 @@ def test_bidirectional_device_match(method):
     refp = np.roll(cur, (2, -3), (0, 1)) + rng.normal(0, 0.5, (h, w, 3))
     refn = np.roll(cur, (-1, 2), (0, 1)) + rng.normal(0, 0.5, (h, w, 3))
     labels = rng.integers(0, 9, (h, w)).astype(np.int32)
-    got = tm._match_device_bidirectional(_t(cur), _t(refp), _t(refn), labels,
-                                         9, 15, 1.0, 0.5, 2, 16, method)
+    plan = tm.region_plan(labels, 9, "cpu")
+    got = tm._match_device_bidirectional(_t(cur), _t(refp), _t(refn), plan,
+                                         15, 1.0, 0.5, 2, 16, method)
     want = jm._match_device_bidirectional(
         jnp.asarray(cur), jnp.asarray(refp), jnp.asarray(refn), labels, 9,
         15, 1.0, 0.5, 2, 16, method)
@@ -175,8 +176,8 @@ def test_bidirectional_device_match(method):
         np.testing.assert_array_equal(uv_t.numpy(), np.asarray(uv_j)[:9])
         np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j)[:9],
                                    rtol=COST_RTOL, atol=COST_ATOL)
-        uv_s, c_s = tm._match_device(_t(cur), _t(ref), labels, 9, 15, 1.0,
-                                     0.5, 2, 16, method)
+        uv_s, c_s = tm._match_device(_t(cur), _t(ref), plan, 15, 1.0, 0.5,
+                                     2, 16, method)
         torch.testing.assert_close(uv_t, uv_s, rtol=0, atol=0)
         torch.testing.assert_close(c_t, c_s, rtol=0, atol=0)
 

@@ -1,12 +1,13 @@
 """The region matcher's moment sums (``tpuflow_torch.kernels.bm_cost``).
 
-On the CPU: the wrapper takes the plain version (``matcher._matmul_sums``,
+On the CPU: the wrapper takes the plain version (``bm_cost._matmul_sums``,
 the strip loop) and launches nothing; every matmul method's cost tables
 are bitwise what the matcher gave before the sums moved behind the
 wrapper (a frozen copy of that ``_matmul_costs`` below); bad input
 raises; the kernel's plan (:func:`bm_cost.segment_plan`) covers every
 region's pixels, and a model of the kernel's segments and their combine,
-at a few pixels a segment, gives the plain sums within 1e-12.
+at a few pixels a segment, gives the plain sums within 1e-12; the module
+imports nothing of the matcher above it.
 
 On the card only (the kernel has no CPU form; the ``cuda`` fixture skips
 here): for each matmul method on small Voronoi frames, the kernel's sums
@@ -18,6 +19,9 @@ call's; a region larger than a segment. Run them on the card with
 ``python -m pytest --noconftest tests/test_torch_bm_cost.py -q`` (this
 file imports no JAX; tests/conftest.py does).
 """
+
+import ast
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -58,10 +62,11 @@ def _cand(method, search, dev="cpu"):
         matcher.method_candidates(method, search), CHUNK), device=dev)
 
 
-def _matmul_costs_before(cur_lab, refs, labels, n_regions, cand, coeff_mad,
-                         coeff_zncc, chunk, radius, bf16=False):
+def _matmul_costs_before(cur_lab, refs, plan, cand, coeff_mad, coeff_zncc,
+                         chunk, radius, bf16=False):
     """``matcher._matmul_costs`` as it was before its sums moved behind
-    ``bm_cost.region_sums`` (frozen)."""
+    ``bm_cost.region_sums`` (frozen; it takes the plan's host labels)."""
+    labels, n_regions = plan.host_labels, plan.n_regions
     dev = cur_lab.device
     h, w, c = cur_lab.shape
     R = radius
@@ -71,8 +76,8 @@ def _matmul_costs_before(cur_lab, refs, labels, n_regions, cand, coeff_mad,
     acc_var = torch.zeros((n_regions, 4 * n_ref, n_cand), dtype=matcher.ACC,
                           device=dev)
     acc_fix = torch.zeros((n_regions, 3), dtype=matcher.ACC, device=dev)
-    plan = matcher._strip_plan(labels, dev)
-    for y0, rows, present, local, n_p in plan:
+    strips = bm_cost._strip_plan(labels, dev)
+    for y0, rows, present, local, n_p in strips:
         L = torch.nn.functional.one_hot(local, n_p).to(matcher.ACC)
         cur_s = cur_lab[y0 : y0 + rows].reshape(rows * w, 1, c)
         a = cur_s[:, 0, 0]
@@ -82,9 +87,9 @@ def _matmul_costs_before(cur_lab, refs, labels, n_regions, cand, coeff_mad,
             d = cand[k0 : k0 + chunk]
             fields = []
             for ref_p in refs_p:
-                sub = matcher._shifted(ref_p, R, y0, rows, d)
+                sub = bm_cost._shifted(ref_p, R, y0, rows, d)
                 b = sub[..., 0]
-                fields += [matcher._l1(cur_s, sub), b, b * b,
+                fields += [bm_cost._l1(cur_s, sub), b, b * b,
                            cur_s[..., 0] * b]
             F = torch.stack(fields, dim=1).reshape(rows * w, -1)
             if bf16:
@@ -105,8 +110,9 @@ def _matmul_costs_before(cur_lab, refs, labels, n_regions, cand, coeff_mad,
 
 def _method_costs(method, labs, labels, n, search, cand, n_ref=2):
     refs = [labs[0], labs[2]][:n_ref]
-    return matcher.method_costs(method, labs[1], refs, labels, n, cand,
-                                search, 1.0, 0.5, CHUNK)
+    plan = matcher.region_plan(labels, n, labs[1].device)
+    return matcher.method_costs(method, labs[1], refs, plan, cand, search,
+                                1.0, 0.5, CHUNK)
 
 
 def _spy_args(monkeypatch, method, labs, labels, n, search, cand):
@@ -124,6 +130,17 @@ def _spy_args(monkeypatch, method, labs, labels, n, search, cand):
     return seen[0]
 
 
+def _seg(labels, n, dev="cpu"):
+    return bm_cost.segment_plan(torch.from_numpy(labels).to(dev), n)
+
+
+def _plain(args):
+    """The plain version on ``region_sums``'s arguments (it takes the
+    host labels, not their segment plan)."""
+    cur, refs, labels, _, *rest = args
+    return bm_cost._matmul_sums(cur, refs, labels, *rest)
+
+
 # ---------------------------------------------------------------- CPU ---
 
 
@@ -133,9 +150,9 @@ def test_cpu_takes_plain_version(scene, n_ref):
     cand = _cand("matmul", SEARCH)
     refs = [labs[0], labs[2]][:n_ref]
     before = bm_cost.LAUNCHES
-    got = bm_cost.region_sums(labs[1], refs, labels, n, cand, CHUNK,
-                              SEARCH // 2)
-    want = matcher._matmul_sums(labs[1], refs, labels, n, cand, CHUNK,
+    got = bm_cost.region_sums(labs[1], refs, labels, _seg(labels, n), n,
+                              cand, CHUNK, SEARCH // 2)
+    want = bm_cost._matmul_sums(labs[1], refs, labels, n, cand, CHUNK,
                                 SEARCH // 2)
     assert bm_cost.LAUNCHES == before
     assert got[0].shape == (n, 4 * n_ref, len(cand))
@@ -176,34 +193,37 @@ class _CudaFrame:
 def _bad_inputs(case, labs, labels, n):
     cur, refs = labs[1], [labs[0], labs[2]]
     cand = _cand("matmul", SEARCH)
+    seg = _seg(labels, n)
     hw = tuple(cur.shape[:2])
     if case == "cur_shape":
-        return cur[..., :2], [r[..., :2] for r in refs], labels, n, cand
+        return cur[..., :2], [r[..., :2] for r in refs], labels, seg, n, cand
     if case == "ref_shape":
-        return cur, [refs[0][1:]], labels, n, cand
+        return cur, [refs[0][1:]], labels, seg, n, cand
     if case == "no_ref":
-        return cur, [], labels, n, cand
+        return cur, [], labels, seg, n, cand
     if case == "labels_shape":
-        return cur, refs, labels[1:], n, cand
+        return cur, refs, labels[1:], seg, n, cand
     if case == "cand_shape":
-        return cur, refs, labels, n, cand[:, :1]
+        return cur, refs, labels, seg, n, cand[:, :1]
     if case == "device":
         meta = [x.to("meta") for x in (cur, *refs)]
-        return meta[0], meta[1:], labels, n, cand.to("meta")
+        return meta[0], meta[1:], labels, seg, n, cand.to("meta")
     cuda = [_CudaFrame((*hw, 3)) for _ in range(3)]
     cand_cuda = _CudaFrame((len(cand), 2), torch.int64)
     if case == "cuda_float64":
-        return _CudaFrame((*hw, 3), torch.float64), cuda[1:], labels, n, \
-            cand_cuda
+        return _CudaFrame((*hw, 3), torch.float64), cuda[1:], labels, seg, \
+            n, cand_cuda
     if case == "cuda_int32_cand":
-        return cuda[0], cuda[1:], labels, n, _CudaFrame((len(cand), 2),
-                                                       torch.int32)
+        return cuda[0], cuda[1:], labels, seg, n, _CudaFrame((len(cand), 2),
+                                                            torch.int32)
     if case == "cuda_three_refs":
-        return cuda[0], cuda, labels, n, cand_cuda
+        return cuda[0], cuda, labels, seg, n, cand_cuda
     if case == "cuda_cand_on_cpu":
-        return cuda[0], cuda[1:], labels, n, cand
+        return cuda[0], cuda[1:], labels, seg, n, cand
     if case == "cuda_labels_range":
-        return cuda[0], cuda[1:], labels, int(labels.max()), cand_cuda
+        return cuda[0], cuda[1:], labels, seg, int(labels.max()), cand_cuda
+    if case == "cuda_plan_on_cpu":  # the kernel would read host pointers
+        return cuda[0], cuda[1:], labels, seg, n, cand_cuda
     raise AssertionError(case)
 
 
@@ -213,7 +233,7 @@ def _bad_inputs(case, labs, labels, n):
     ("cand_shape", ValueError), ("device", ValueError),
     ("cuda_float64", TypeError), ("cuda_int32_cand", TypeError),
     ("cuda_three_refs", ValueError), ("cuda_cand_on_cpu", ValueError),
-    ("cuda_labels_range", ValueError)])
+    ("cuda_labels_range", ValueError), ("cuda_plan_on_cpu", ValueError)])
 def test_raises_on_bad_input(scene, case, error):
     labs, labels, n = scene
     before = bm_cost.LAUNCHES
@@ -221,6 +241,20 @@ def test_raises_on_bad_input(scene, case, error):
         bm_cost.region_sums(*_bad_inputs(case, labs, labels, n), CHUNK,
                             SEARCH // 2)
     assert bm_cost.LAUNCHES == before
+
+
+def test_kernel_layer_imports_no_matcher():
+    """kernels/bm_cost.py sits below the matcher: no import of it, or of
+    anything under ``tpuflow_torch.blockmatching``, anywhere in the
+    module (a function's own imports included)."""
+    tree = ast.parse(Path(bm_cost.__file__).read_text())
+    names = [a.name for node in ast.walk(tree)
+             if isinstance(node, ast.Import) for a in node.names]
+    names += [f"{node.module}.{a.name}" for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) for a in node.names]
+    assert "tpuflow_torch.kernels._build" in names  # the walk sees imports
+    assert [m for m in names
+            if m.startswith("tpuflow_torch.blockmatching")] == []
 
 
 def _label_maps():
@@ -263,9 +297,9 @@ def _fields(cur, refs, cand, radius, bf16):
     for ref in refs:
         ref_p = torch.nn.functional.pad(ref, (0, 0, radius, radius, radius,
                                               radius))
-        sub = matcher._shifted(ref_p, radius, 0, h, cand)
+        sub = bm_cost._shifted(ref_p, radius, 0, h, cand)
         b = sub[..., 0]
-        out += [matcher._l1(cur_s, sub), b, b * b, cur_s[..., 0] * b]
+        out += [bm_cost._l1(cur_s, sub), b, b * b, cur_s[..., 0] * b]
     f = torch.stack(out, dim=1)
     if bf16:
         f = f.to(torch.bfloat16)
@@ -314,11 +348,11 @@ def test_segment_model_matches_plain(scene, monkeypatch, method, segment):
     labs, labels, n = scene
     cand = _cand(method, SEARCH)
     args = _spy_args(monkeypatch, method, labs, labels, n, SEARCH, cand)
-    cur, refs, lab, n_r, cand_r, chunk, radius, bf16 = args
+    cur, refs, lab, _, n_r, cand_r, chunk, radius, bf16 = args
     monkeypatch.setattr(bm_cost, "SEGMENT", segment)
     got = _kernel_model(cur, refs, np.ascontiguousarray(lab), n_r, cand_r,
                         radius, bf16)
-    want = matcher._matmul_sums(*args)
+    want = _plain(args)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=SUM_RTOL, atol=0)
 
@@ -342,8 +376,7 @@ def card_scene(cuda):
 
 def _plain_on_card(monkeypatch):
     """Route the matcher's sums to the plain version on the card."""
-    monkeypatch.setattr(bm_cost, "region_sums",
-                        lambda *args: matcher._matmul_sums(*args))
+    monkeypatch.setattr(bm_cost, "region_sums", lambda *args: _plain(args))
 
 
 @pytest.mark.parametrize("method", MATMUL)
@@ -354,7 +387,7 @@ def test_kernel_matches_plain_on_card(card_scene, monkeypatch, method):
     before = bm_cost.LAUNCHES
     got = bm_cost.region_sums(*args)
     assert bm_cost.LAUNCHES == before + 2
-    want = matcher._matmul_sums(*args)
+    want = _plain(args)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=SUM_RTOL, atol=0)
     costs = _method_costs(method, labs, labels, n, CARD_SEARCH, cand)
@@ -382,7 +415,7 @@ def test_kernel_bitwise_repeat_slice_one_ref(card_scene, monkeypatch,
     labs, labels, n = card_scene
     cand = _cand(method, CARD_SEARCH, labs[1].device)
     args = _spy_args(monkeypatch, method, labs, labels, n, CARD_SEARCH, cand)
-    cur, refs, lab, n_r, cand_r, chunk, radius, bf16 = args
+    cur, refs, lab, seg, n_r, cand_r, chunk, radius, bf16 = args
     first = bm_cost.region_sums(*args)
     again = bm_cost.region_sums(*args)
     for a, b in zip(first, again):
@@ -390,13 +423,13 @@ def test_kernel_bitwise_repeat_slice_one_ref(card_scene, monkeypatch,
     # A mesh rank's slice of the padded list (dist/bm.py), and the other
     # reference alone.
     half = len(cand_r) // 2
-    part = bm_cost.region_sums(cur, refs, lab, n_r, cand_r[half:], chunk,
-                               radius, bf16)
+    part = bm_cost.region_sums(cur, refs, lab, seg, n_r, cand_r[half:],
+                               chunk, radius, bf16)
     assert torch.equal(part[0], first[0][:, :, half:])
     assert torch.equal(part[1], first[1])
     for k in range(2):
-        one = bm_cost.region_sums(cur, refs[k : k + 1], lab, n_r, cand_r,
-                                  chunk, radius, bf16)
+        one = bm_cost.region_sums(cur, refs[k : k + 1], lab, seg, n_r,
+                                  cand_r, chunk, radius, bf16)
         assert torch.equal(one[0], first[0][:, 4 * k : 4 * k + 4])
         assert torch.equal(one[1], first[1])
 
@@ -410,9 +443,10 @@ def test_kernel_region_larger_than_segment(card_scene):
     n_big = int(big.max()) + 1
     assert np.bincount(big.ravel()).max() > 2 * bm_cost.SEGMENT
     cand = _cand("matmul", CARD_SEARCH, labs[1].device)
-    args = (labs[1], [labs[0], labs[2]], big, n_big, cand, CHUNK,
+    args = (labs[1], [labs[0], labs[2]], big,
+            _seg(big, n_big, labs[1].device), n_big, cand, CHUNK,
             CARD_SEARCH // 2, False)
     got = bm_cost.region_sums(*args)
-    want = matcher._matmul_sums(*args)
+    want = _plain(args)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=SUM_RTOL, atol=0)

@@ -77,6 +77,7 @@ def _suite(mesh, parts) -> dict:
     this rank's mesh; numpy results (rank 0's are kept)."""
     import torch.distributed as dist
 
+    from tpuflow_torch.blockmatching import matcher
     from tpuflow_torch.dist import bm, bm_refine
     from tpuflow_torch.segmentation import meanshift
 
@@ -89,7 +90,8 @@ def _suite(mesh, parts) -> dict:
             search_range=SEARCH, method=method)
         out[method] = (r.region_uv, r.region_cost)
         bidi = bm._match_device_sharded_bidirectional(
-            t(x["cur"]), t(x["ref"]), t(x["nxt"]), x["labels"], x["n"], mesh,
+            t(x["cur"]), t(x["ref"]), t(x["nxt"]),
+            matcher.region_plan(x["labels"], x["n"], mesh.device), mesh,
             SEARCH, 1.0, 0.5, 2, 16, method)
         out[method + "_bidi"] = [(uv.numpy(), c.numpy()) for uv, c in bidi]
     if "filter" in parts:
@@ -170,8 +172,9 @@ def test_sharded_search_matches(port, method):
     np.testing.assert_allclose(cost, want.region_cost, rtol=COST_RTOL,
                                atol=COST_ATOL)
     pair = matcher._match_device_bidirectional(
-        t(x["cur"]), t(x["ref"]), t(x["nxt"]), x["labels"], x["n"], SEARCH,
-        1.0, 0.5, 2, 16, method)
+        t(x["cur"]), t(x["ref"]), t(x["nxt"]),
+        matcher.region_plan(x["labels"], x["n"], "cpu"), SEARCH, 1.0, 0.5, 2,
+        16, method)
     for (g_uv, g_c), (w_uv, w_c) in zip(out[method + "_bidi"], pair):
         np.testing.assert_array_equal(g_uv, w_uv.numpy())
         np.testing.assert_array_equal(g_c, w_c.numpy())

@@ -14,6 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 from chip_smoke import voronoi_frames
 from tpuflow_torch.blockmatching import matcher
 from tpuflow_torch.core.config import MultipleMotionParam
+from tpuflow_torch.kernels import bm_cost
 from tpuflow_torch.solvers import bm_flow
 from tpuflow_torch.solvers.black_anandan_fast import optical_flow_pyramid_fast
 from tpuflow_torch.utils import telemetry
@@ -231,11 +232,11 @@ def test_flagship_outputs_bitwise_with_recording(flagship_runs):
 FRAME_STAGES = {
     # first pair: both frames segmented, one direction searched
     False: ["bm.lab", "bm.segment", "bm.label", "bm.lab", "bm.segment",
-            "bm.label", "bm.search", "wait.labels", "bm.refine",
-            "bm.compose", "bm.side_outputs"],
+            "bm.label", "bm.search", "bm.refine", "bm.compose",
+            "bm.side_outputs"],
     # a middle frame: the new frame's filter queued, then the search
-    True: ["bm.lab", "bm.segment", "bm.search", "bm.label", "wait.labels",
-           "bm.refine", "bm.compose", "bm.side_outputs"],
+    True: ["bm.lab", "bm.segment", "bm.search", "bm.label", "bm.refine",
+           "bm.compose", "bm.side_outputs"],
 }
 
 
@@ -258,9 +259,11 @@ def test_flagship_spans_nest_as_the_frame_runs(flagship_runs):
             assert [c.name for c in _children(spans, lab)] == [
                 "wait.lab_upload"]
         search = next(s for s in kids if s.name == "bm.search")
-        assert [c.name for c in _children(spans, search)] == (
-            ["wait.plan", "wait.candidates", "wait.strip_plan"]
-            + ["wait.argmin", "wait.grid_refine"] * (2 if bidir else 1))
+        # The plan's one upload, then the candidates and the refine's
+        # offsets in one span, whatever the directions.
+        assert [c.name for c in _children(spans, search)] == [
+            "wait.plan", "wait.candidates", "wait.strip_plan"]
+        assert _children(spans, search)[1].fields == {"count": 2}
         assert search.fields["regions"] == out.segmentation.n_regions
         want = {"directions": 2} if bidir else {"direction": "prev"}
         assert {k: search.fields[k] for k in want} == want
@@ -278,6 +281,40 @@ def test_flagship_spans_nest_as_the_frame_runs(flagship_runs):
         assert s.start_ns <= s.end_ns and s.device_ms is None
 
 
+def test_one_region_plan_a_frame(monkeypatch, three_frames, flagship_runs):
+    """Each frame builds its segmentation's plan once, in its search, and
+    nothing on the frame path sorts labels on the host; the outputs are
+    the unwrapped run's."""
+    (plain, plain_blocks), _, _ = flagship_runs
+    built, host_sorts = [], []
+    build = matcher.region_plan
+    argsort = np.argsort
+
+    def counted(labels, n_regions, device):
+        built.append(n_regions)
+        return build(labels, n_regions, device)
+
+    def host_sort(*args, **kwargs):
+        host_sorts.append(np.shape(args[0]))
+        return argsort(*args, **kwargs)
+
+    monkeypatch.setattr(matcher, "region_plan", counted)
+    monkeypatch.setattr(np, "argsort", host_sort)
+    monkeypatch.setattr(matcher, "region_reduction_plan", None)
+    blocks = []
+    outs = _flagship(three_frames, blocks)
+    assert built == [out.segmentation.n_regions for out in outs]
+    assert host_sorts == []
+    assert blocks == plain_blocks
+    for got, want in zip(outs, plain):
+        for name in ("u", "v", "t", "bm_u", "bm_v", "quantized_rgb",
+                     "shift_vector"):
+            np.testing.assert_array_equal(getattr(got, name),
+                                          getattr(want, name))
+        np.testing.assert_array_equal(got.segmentation.labels,
+                                      want.segmentation.labels)
+
+
 def _top(spans, s):
     while s.parent is not None:
         s = spans[s.parent]
@@ -291,7 +328,7 @@ def test_search_counts_its_chunks(flagship_runs):
     for s in searches:
         f = s.fields
         assert f["candidates"] == len(matcher.search_candidates(7))
-        assert f["strips"] == -(-40 // matcher._STRIP)
+        assert f["strips"] == -(-40 // bm_cost._STRIP)
         assert f["chunks"] == f["strips"] * -(-f["candidates"] // chunk)
         strip = next(c for c in spans if c.parent == s.index
                      and c.name == "wait.strip_plan")
@@ -304,7 +341,6 @@ def test_search_counts_its_launches(three_frames):
     loop's ``strips`` and ``chunks``; bm_cost.LAUNCHES counts them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the bm_cost kernel has no CPU form")
-    from tpuflow_torch.kernels import bm_cost
 
     def run():
         out1, state = bm_flow.optical_flow_block_matching(
@@ -320,8 +356,8 @@ def test_search_counts_its_launches(three_frames):
     for s in searches:
         assert s.fields["launches"] == 2
         assert "strips" not in s.fields and "chunks" not in s.fields
-        assert [c.name for c in spans if c.parent == s.index][:3] == [
-            "wait.plan", "wait.candidates", "wait.sums_labels"]
+        assert [c.name for c in spans if c.parent == s.index] == [
+            "wait.plan", "wait.candidates"]
     assert bm_cost.LAUNCHES - before == 4
 
 

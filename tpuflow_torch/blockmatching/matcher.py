@@ -13,7 +13,7 @@ The integer-search evaluators, as in tpuflow (:data:`METHODS`):
   sums for every candidate, from
   :func:`tpuflow_torch.kernels.bm_cost.region_sums`: on the card one
   hand-written kernel (``csrc/bm_cost.cu``) over the whole candidate
-  list; on the CPU its plain version :func:`_matmul_sums`, where per
+  list; on the CPU its plain version ``bm_cost._matmul_sums``, where per
   32-row strip the region one-hot matrix L (strip pixels x regions present
   in the strip) reduces every candidate chunk's moment fields in ONE
   ``L^T @ F`` product, the shifted reference one gather per chunk from a
@@ -24,10 +24,11 @@ The integer-search evaluators, as in tpuflow (:data:`METHODS`):
 - ``"matmul_coarse"`` / ``"matmul_coarse3"``: the stride-2 / stride-3
   subgrid of the candidates (:func:`coarse_candidates`), then an inclusive
   +-1-px refinement at 1/subpixel steps around the coarse winner
-  (:func:`_local_refine`), which recovers the skipped cells;
+  (:func:`_refine_offsets`), which recovers the skipped cells;
 - ``"matmul_half"`` / ``"matmul_half2"``: the stride-2 subgrid scored on
-  anti-aliased half-resolution frames and labels (:func:`_half_res`), then
-  the same refinement at full resolution (radius 2 for ``_half2``);
+  anti-aliased half-resolution frames and labels (:func:`_half_res`,
+  :meth:`RegionPlan.view`), then the same refinement at full resolution
+  (radius 2 for ``_half2``);
 - ``"gather"``: pixels permuted into label order once, per-region sums
   by chunk sums + boundary prefixes (:func:`_contiguous_range_sums`).
 
@@ -52,6 +53,11 @@ device scores the whole list or a mesh rank scores its slice
 sums each candidate in an order of its own, so its columns agree too).
 tpuflow's ``region_bucket``/``pad_region_bounds``, which dodge XLA
 recompiles, are not ported: the port works with the true region count.
+
+Every search reduces by one :class:`RegionPlan` of its label map
+(:func:`region_plan`: the labels go to the frames' device once and are
+sorted there), which the flagship's refine and compose reuse; the
+candidate table and the refine's offsets go to the device once a search.
 """
 
 from __future__ import annotations
@@ -61,8 +67,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tpuflow_torch.core.color import LAB_SCALE as _LAB_SCALE
 from tpuflow_torch.kernels import bm_cost
+from tpuflow_torch.kernels.bm_cost import _l1, _shifted
 from tpuflow_torch.utils.telemetry import note, record_span
 
 #: The integer-search evaluators (tpuflow's, in its order).
@@ -71,9 +77,6 @@ METHODS = ("matmul", "matmul_bf16", "matmul_coarse", "matmul_coarse3",
 
 #: The dtype of every per-region sum and cost.
 ACC = torch.float64
-
-#: Rows per one-hot strip (tpuflow's ``_STRIP``).
-_STRIP = 32
 
 #: Most regions a match takes. The per-candidate sums hold n_cand x
 #: n_regions x 8 floats (61x61 search: 1.9 GB at this limit); a frame
@@ -108,8 +111,56 @@ class BlockMatchResult:
     region_cost: np.ndarray  # (n_regions,)
 
 
+@dataclass
+class RegionPlan:
+    """One label map's region reduction plan (:func:`region_plan`): the
+    stable sort of its pixels by label and the region bounds in that
+    order, beside the map on the host and on the frames' device."""
+
+    host_labels: np.ndarray  # (H, W) host label map (the CPU strip loop)
+    labels: torch.Tensor     # (H, W) contiguous int32 on the device
+    perm: torch.Tensor       # (H * W,) int64: pixels in label order
+    bounds: torch.Tensor     # (n_regions + 1,) int64 region offsets in perm
+    seg_end: torch.Tensor    # (n_regions,) int64 (bm_cost.segment_plan)
+    n_regions: int
+
+    def view(self, rows: slice, cols: slice) -> "RegionPlan":
+        """The plan of a window of the map (a mesh tile, or the stride-2
+        half-resolution grid), from the device labels: no upload."""
+        labels = self.labels[rows, cols].contiguous()
+        return RegionPlan(self.host_labels[rows, cols], labels,
+                          *bm_cost.segment_plan(labels, self.n_regions),
+                          self.n_regions)
+
+
+def region_plan(labels, n_regions: int, device) -> RegionPlan:
+    """The :class:`RegionPlan` of the host label map ``labels`` (values in
+    [0, n_regions)) on ``device``: one upload, then
+    ``bm_cost.segment_plan`` on the device (no host sort)."""
+    labels = np.asarray(labels)
+    n_regions = int(n_regions)
+    if n_regions > MAX_REGIONS:
+        raise ValueError(f"block matching: {n_regions} regions, more than "
+                         f"MAX_REGIONS={MAX_REGIONS}")
+    if labels.size and (labels.min() < 0 or labels.max() >= n_regions):
+        raise ValueError(f"block matching: labels outside [0, {n_regions})")
+    with record_span("wait.plan"):
+        labels_t = torch.from_numpy(
+            np.ascontiguousarray(labels, dtype=np.int32)).to(device)
+    return RegionPlan(labels, labels_t,
+                      *bm_cost.segment_plan(labels_t, n_regions), n_regions)
+
+
+def as_plan(labels, n_regions: int, device) -> RegionPlan:
+    """``labels`` if a :class:`RegionPlan`, else its host map's plan."""
+    if isinstance(labels, RegionPlan):
+        return labels
+    return region_plan(labels, n_regions, device)
+
+
 def region_reduction_plan(labels: np.ndarray, n_regions: int):
-    """The sort-by-label pixel permutation and the region boundary offsets."""
+    """The sort-by-label pixel permutation and the region boundary offsets
+    on the host: the plain reference of :class:`RegionPlan`'s."""
     flat = np.asarray(labels).reshape(-1)
     perm = np.argsort(flat, kind="stable").astype(np.int64)
     counts = np.bincount(flat, minlength=n_regions)
@@ -138,12 +189,6 @@ def _contiguous_range_sums(sorted_fields: torch.Tensor, bounds: torch.Tensor,
     prefix = (rows * mask[:, :, None]).sum(dim=1)        # (n_bounds, C)
     s_at = cs[cidx] + prefix
     return s_at[1:] - s_at[:-1]
-
-
-def _l1(cur: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
-    """Mean Lab L1 distance in standard Lab units, channels summed in order."""
-    d = (cur - ref).abs()
-    return (d[..., 0] + d[..., 1] + d[..., 2]) * (_LAB_SCALE / 3.0)
 
 
 def _moment_fields(cur: torch.Tensor, ref_shifted: torch.Tensor,
@@ -217,8 +262,8 @@ def coarse_stride(method: str) -> int:
 
 
 def is_coarse(method: str) -> bool:
-    """Methods that score a candidate subgrid and finish with
-    :func:`_local_refine`."""
+    """Methods that score a candidate subgrid and finish with the local
+    refine of :func:`_refine_offsets`."""
     return method.startswith(("matmul_coarse", "matmul_half"))
 
 
@@ -243,29 +288,14 @@ def _half_res(img: torch.Tensor) -> torch.Tensor:
     return _binomial3(img)[::2, ::2].contiguous()
 
 
-def _shifted(ref_p: torch.Tensor, radius: int, y0: int, rows: int,
-             d: torch.Tensor) -> torch.Tensor:
-    """(rows * W, CH, C): the reference at (x + dx, y + dy) for the rows
-    [y0, y0 + rows) and each of the CH candidates ``d`` ((dy, dx) on the
-    device), read from ``ref_p``, the frame zero-padded by ``radius``."""
-    w = ref_p.shape[1] - 2 * radius
-    dev = ref_p.device
-    yy = (torch.arange(y0, y0 + rows, device=dev)[:, None, None]
-          + radius + d[None, None, :, 0])                 # (rows, 1, CH)
-    xx = (torch.arange(w, device=dev)[None, :, None]
-          + radius + d[None, None, :, 1])                 # (1, W, CH)
-    return ref_p[yy, xx].reshape(rows * w, d.shape[0], ref_p.shape[2])
-
-
-def _integer_costs(cur_lab, ref_lab, perm, bounds, n_regions: int, cand,
+def _integer_costs(cur_lab, ref_lab, plan: RegionPlan, cand,
                    coeff_mad: float, coeff_zncc: float, chunk: int,
                    radius: int):
     """The gather evaluator: MAD+ZNCC cost of every candidate,
-    (n_cand, n_regions). ``perm``/``bounds`` from
-    :func:`region_reduction_plan`, on the frames' device; ``radius``
-    bounds max |d|."""
+    (n_cand, n_regions), reduced by ``plan``; ``radius`` bounds max |d|."""
     h, w, c = cur_lab.shape
     R = radius
+    n_regions = plan.n_regions
     ref_p = torch.nn.functional.pad(ref_lab, (0, 0, R, R, R, R))
     cur = cur_lab.reshape(h * w, 1, c)
     a = cur[..., 0]
@@ -277,102 +307,32 @@ def _integer_costs(cur_lab, ref_lab, perm, bounds, n_regions: int, cand,
         one = torch.ones_like(b)
         f = torch.stack([one, _l1(cur, sub), a.expand_as(b), b,
                          (a * a).expand_as(b), b * b, a * b], dim=-1)
-        sums = _contiguous_range_sums(f.reshape(h * w, -1)[perm], bounds)
+        sums = _contiguous_range_sums(f.reshape(h * w, -1)[plan.perm],
+                                      plan.bounds)
         mad, zncc, _ = _cost_from_sums(
             sums.view(n_regions, d.shape[0], 7).transpose(0, 1))
         out.append(coeff_mad * mad - coeff_zncc * zncc)
     return torch.cat(out, dim=0)
 
 
-def _strip_plan(labels: np.ndarray, device):
-    """Per strip of :data:`_STRIP` rows: (y0, rows, the regions present
-    (a device index), each pixel's position among them (a device index),
-    their count). Computed on the host from the host label map, then
-    uploaded strip by strip."""
-    h = labels.shape[0]
-    host = []
-    for y0 in range(0, h, _STRIP):
-        rows = min(_STRIP, h - y0)
-        present, local = np.unique(labels[y0 : y0 + rows],
-                                   return_inverse=True)
-        host.append((y0, rows, present.astype(np.int64),
-                     local.reshape(-1).astype(np.int64)))
-    plan = []
-    with record_span("wait.strip_plan", count=2 * len(host)):
-        for y0, rows, present, local in host:
-            local_t = torch.from_numpy(local).to(device)
-            plan.append((y0, rows, torch.from_numpy(present).to(device),
-                         local_t, len(present)))
-    return plan
-
-
-def _matmul_sums(cur_lab, refs, labels: np.ndarray, n_regions: int, cand,
-                 chunk: int, radius: int, bf16: bool = False):
-    """The strip one-hot evaluator's region sums for one or more reference
-    frames matched against the same current frame and labels, the plain
-    version of :func:`tpuflow_torch.kernels.bm_cost.region_sums`: the
-    candidate-invariant current-frame moments reduce once per strip, and
-    each candidate chunk builds 4 channels per reference
-    (L1, b, b^2, a*b) and reduces them in one ``L^T @ F`` product over the
-    regions present in the strip. ``bf16`` rounds those 4 channels to
-    bfloat16 before the sum (tpuflow's ``mxu_dtype``; the one-hot L and
-    the current-frame moments stay exact). Returns (acc_var (n_regions,
-    4 n_ref, n_cand), acc_fix (n_regions, 3): n, sum a, sum a^2)."""
-    dev = cur_lab.device
-    h, w, c = cur_lab.shape
-    R = radius
-    n_ref = len(refs)
-    refs_p = [torch.nn.functional.pad(r, (0, 0, R, R, R, R)) for r in refs]
-    n_cand = cand.shape[0]
-    # Channel-major per region, (n_regions, 4 * n_ref, n_cand): each
-    # chunk's fields stack in runs of CH contiguous values.
-    acc_var = torch.zeros((n_regions, 4 * n_ref, n_cand), dtype=ACC,
-                          device=dev)
-    acc_fix = torch.zeros((n_regions, 3), dtype=ACC, device=dev)
-    plan = _strip_plan(labels, dev)
-    chunks = 0
-    for y0, rows, present, local, n_p in plan:
-        L = torch.nn.functional.one_hot(local, n_p).to(ACC)  # (P, n_p)
-        cur_s = cur_lab[y0 : y0 + rows].reshape(rows * w, 1, c)
-        a = cur_s[:, 0, 0]
-        # Candidate-invariant current-frame moments: n, sum a, sum a^2.
-        fix = torch.stack([torch.ones_like(a), a, a * a], dim=-1)
-        acc_fix[present] += L.t() @ fix.to(ACC)
-        for k0 in range(0, n_cand, chunk):
-            d = cand[k0 : k0 + chunk]
-            fields = []
-            for ref_p in refs_p:
-                sub = _shifted(ref_p, R, y0, rows, d)          # (P, CH, C)
-                b = sub[..., 0]
-                fields += [_l1(cur_s, sub), b, b * b, cur_s[..., 0] * b]
-            F = torch.stack(fields, dim=1).reshape(rows * w, -1)
-            if bf16:
-                F = F.to(torch.bfloat16)
-            F = F.to(ACC)
-            acc_var[present, :, k0 : k0 + d.shape[0]] += (L.t() @ F).view(
-                n_p, 4 * n_ref, d.shape[0])
-            chunks += 1
-    note(strips=len(plan), chunks=chunks)
-    return acc_var, acc_fix
-
-
-def _matmul_costs(cur_lab, refs, labels: np.ndarray, n_regions: int, cand,
-                  coeff_mad: float, coeff_zncc: float, chunk: int,
-                  radius: int, bf16: bool = False):
+def _matmul_costs(cur_lab, refs, plan: RegionPlan, cand, coeff_mad: float,
+                  coeff_zncc: float, chunk: int, radius: int,
+                  bf16: bool = False):
     """The matmul evaluator for one or more reference frames matched
-    against the same current frame and labels: the region sums of
+    against the same current frame and plan: the region sums of
     :func:`tpuflow_torch.kernels.bm_cost.region_sums` (on a CUDA tensor
-    the kernel, on a CPU tensor :func:`_matmul_sums`), then the MAD + ZNCC
+    the kernel, on a CPU tensor its plain strip loop), then the MAD + ZNCC
     cost of each. Returns one (n_cand, n_regions) cost table per
     reference, each equal to a single-reference call."""
-    return _sums_costs(*bm_cost.region_sums(cur_lab, refs, labels,
-                                            n_regions, cand, chunk, radius,
-                                            bf16), coeff_mad, coeff_zncc)
+    return _sums_costs(*bm_cost.region_sums(
+        cur_lab, refs, plan.host_labels,
+        (plan.perm, plan.bounds, plan.seg_end), plan.n_regions, cand, chunk,
+        radius, bf16), coeff_mad, coeff_zncc)
 
 
 def _sums_costs(acc_var, acc_fix, coeff_mad: float, coeff_zncc: float):
     """One (n_cand, n_regions) MAD + ZNCC cost table per reference from
-    the region sums of :func:`_matmul_sums` / ``bm_cost.region_sums``."""
+    the region sums of ``bm_cost.region_sums``."""
     var = acc_var.permute(2, 0, 1)                      # (n_cand, n_reg, 4k)
     out = []
     for off in range(0, var.shape[-1], 4):
@@ -384,39 +344,83 @@ def _sums_costs(acc_var, acc_fix, coeff_mad: float, coeff_zncc: float):
     return out
 
 
-def method_costs(method: str, cur_lab, refs, labels: np.ndarray,
-                 n_regions: int, cand, search_range: int, coeff_mad: float,
-                 coeff_zncc: float, chunk: int):
-    """The matmul methods' integer cost tables, one per reference in
-    ``refs`` (one or two), over the candidates ``cand`` (a device tensor,
-    a padded slice of :func:`method_candidates`): ``_half`` methods score
-    the half-resolution frames and labels at half the displacement, the
-    others the frames themselves."""
+def method_costs(method: str, cur_lab, refs, plan: RegionPlan, cand,
+                 search_range: int, coeff_mad: float, coeff_zncc: float,
+                 chunk: int):
+    """The integer cost tables, one per reference in ``refs`` (one or
+    two), over the candidates ``cand`` (a device tensor, a padded slice of
+    :func:`method_candidates`): ``"gather"`` by :func:`_integer_costs`;
+    ``_half`` methods score the half-resolution frames and plan at half
+    the displacement, the other matmul methods the frames themselves."""
+    if method == "gather":
+        return [_integer_costs(cur_lab, ref, plan, cand, coeff_mad,
+                               coeff_zncc, chunk, search_range // 2)
+                for ref in refs]
     if method.startswith("matmul_half"):
+        half = slice(None, None, 2)
         return _matmul_costs(
             _half_res(cur_lab), [_half_res(r) for r in refs],
-            labels[::2, ::2], n_regions, torch.div(cand, 2,
-                                                   rounding_mode="floor"),
+            plan.view(half, half), torch.div(cand, 2, rounding_mode="floor"),
             coeff_mad, coeff_zncc, chunk, -(-(search_range // 2) // 2))
-    return _matmul_costs(cur_lab, refs, labels, n_regions, cand, coeff_mad,
-                         coeff_zncc, chunk, search_range // 2,
-                         method == "matmul_bf16")
+    return _matmul_costs(cur_lab, refs, plan, cand, coeff_mad, coeff_zncc,
+                         chunk, search_range // 2, method == "matmul_bf16")
 
 
-def _grid_refine(cur_lab, ref_lab, labels, perm, bounds, n_regions: int,
-                 best_d, sub_np: np.ndarray, taps, coeff_mad: float,
-                 coeff_zncc: float):
-    """Re-score each region at its integer winner plus each fractional
-    offset of ``sub_np`` ((n_sub, (dy, dx))) and keep the best: every
-    offset's bilinear taps lie in the integer neighbourhood ``taps`` x
-    ``taps`` of the winner, gathered once in label-sorted order; one
-    range-sum pass reduces every offset's moment fields."""
+def _refine_offsets(method: str, subpixel_scale: int):
+    """The offsets (n_sub, (dy, dx)) the refine re-scores around each
+    integer winner, on the host, or None (no refine): for a coarse method
+    the inclusive [-radius, +radius]^2 grid at 1/subpixel steps (tpuflow's
+    ``_local_refine``, which recovers the cells a coarse search skipped;
+    radius 2 for ``matmul_half2``, else 1), else with ``subpixel_scale >
+    1`` the 1/subpixel grid in (-1, 1)."""
+    if is_coarse(method):
+        scale = max(subpixel_scale, 1)
+        radius = 2 if method == "matmul_half2" else 1
+        steps = np.arange(-radius * scale, radius * scale + 1) * (1.0 / scale)
+        return np.stack(np.meshgrid(steps, steps, indexing="ij"),
+                        -1).reshape(-1, 2)
+    if subpixel_scale > 1:
+        steps = np.arange(-(subpixel_scale - 1), subpixel_scale)
+        return np.stack(np.meshgrid(steps, steps, indexing="ij"),
+                        -1).reshape(-1, 2) * (1.0 / subpixel_scale)
+    return None
+
+
+def _search_tables(method: str, search_range: int, chunk: int,
+                   subpixel_scale: int, n_regions: int, dtype, device,
+                   n_shards: int = 1):
+    """A search's constant tables (cand, n_cand, sub, offsets): ``method``'s
+    candidates padded to the chunk for each of ``n_shards`` slices
+    (:func:`padded_candidates`) on ``device`` and their count before the
+    padding, and the refine's offsets (:func:`_refine_offsets`) on the host
+    and on ``device`` in ``dtype`` (both None without a refine); the
+    uploads in one span. Notes the candidates' count and the regions."""
+    cand_np = method_candidates(method, search_range)
+    note(candidates=len(cand_np), regions=n_regions)
+    sub = _refine_offsets(method, subpixel_scale)
+    with record_span("wait.candidates", count=1 if sub is None else 2):
+        cand = torch.as_tensor(padded_candidates(cand_np, chunk, n_shards),
+                               device=device)
+        offsets = (None if sub is None
+                   else torch.as_tensor(sub, dtype=dtype, device=device))
+    return cand, len(cand_np), sub, offsets
+
+
+def _grid_refine(cur_lab, ref_lab, plan: RegionPlan, best_d, sub: np.ndarray,
+                 offsets, coeff_mad: float, coeff_zncc: float):
+    """Re-score each region at its integer winner plus each offset of
+    ``sub`` ((n_sub, (dy, dx)); ``offsets`` the same on the device) and
+    keep the best: every offset's bilinear taps lie in the integer cells
+    floor(min sub) .. floor(max sub) + 1 around the winner, gathered once
+    in label-sorted order; one range-sum pass reduces every offset's
+    moment fields."""
     dt = cur_lab.dtype
     dev = cur_lab.device
     h, w, c = cur_lab.shape
     n_pix = h * w
-    n_sub = sub_np.shape[0]
-    d_pix = best_d[labels]                   # (H, W, (dy, dx)), integral
+    n_sub = sub.shape[0]
+    perm = plan.perm
+    d_pix = best_d[plan.labels]              # (H, W, (dy, dx)), integral
     xs = torch.arange(w, device=dev)[None, :]
     ys = torch.arange(h, device=dev)[:, None]
     x_base = (xs + d_pix[..., 1].long()).reshape(-1)[perm]
@@ -432,9 +436,10 @@ def _grid_refine(cur_lab, ref_lab, labels, perm, bounds, n_regions: int,
         xx = xx.clamp(0, w - 1)
         return ref_flat[yy * w + xx] * ok[:, None]
 
+    taps = range(int(np.floor(sub.min())), int(np.floor(sub.max())) + 2)
     nb = {(jy, jx): g(y_base + jy, x_base + jx) for jy in taps for jx in taps}
     fields_all = []
-    for dy_f, dx_f in sub_np:
+    for dy_f, dx_f in sub:
         iy = int(np.floor(dy_f))
         ix = int(np.floor(dx_f))
         fx = float(dx_f - ix)
@@ -445,101 +450,35 @@ def _grid_refine(cur_lab, ref_lab, labels, perm, bounds, n_regions: int,
                   + fx * fy * nb[(iy + 1, ix + 1)])
         fields_all.append(_moment_fields(cur_s, interp, ones))
     fs = torch.stack(fields_all, dim=1).reshape(n_pix, n_sub * 7)
-    sums = _contiguous_range_sums(fs, bounds)       # (n_regions, n_sub*7)
+    sums = _contiguous_range_sums(fs, plan.bounds)  # (n_regions, n_sub*7)
     mad, zncc, _ = _cost_from_sums(
-        sums.view(n_regions, n_sub, 7).transpose(0, 1))
+        sums.view(plan.n_regions, n_sub, 7).transpose(0, 1))
     sub_costs = coeff_mad * mad - coeff_zncc * zncc   # (n_sub, n_regions)
     sbest = torch.argmin(sub_costs, dim=0)
     best_cost = sub_costs.gather(0, sbest[None, :])[0]
-    with record_span("wait.grid_refine"):
-        offsets = torch.as_tensor(sub_np, dtype=dt, device=dev)
     return best_d + offsets[sbest], best_cost
 
 
-def _subpixel_refine(cur_lab, ref_lab, labels, perm, bounds, n_regions: int,
-                     best_d, subpixel_scale: int, coeff_mad: float,
-                     coeff_zncc: float):
-    """Refine each region's integer winner on a 1/subpixel grid in (-1, 1)
-    (every offset's taps in the winner's 3x3 neighbourhood)."""
-    steps = np.arange(-(subpixel_scale - 1), subpixel_scale)
-    sub_np = np.stack(np.meshgrid(steps, steps, indexing="ij"),
-                      -1).reshape(-1, 2) * (1.0 / subpixel_scale)
-    return _grid_refine(cur_lab, ref_lab, labels, perm, bounds, n_regions,
-                        best_d, sub_np, (-1, 0, 1), coeff_mad, coeff_zncc)
-
-
-def _local_refine(cur_lab, ref_lab, labels, perm, bounds, n_regions: int,
-                  best_d, subpixel_scale: int, radius: int,
-                  coeff_mad: float, coeff_zncc: float):
-    """Inclusive [-radius, +radius]^2 refinement at 1/subpixel steps
-    around each region's integer winner (tpuflow's ``_local_refine``,
-    which recovers the cells a coarse search skipped; the taps span
-    (2 radius + 2)^2 integer cells)."""
-    steps = np.arange(-radius * subpixel_scale,
-                      radius * subpixel_scale + 1) * (1.0 / subpixel_scale)
-    sub_np = np.stack(np.meshgrid(steps, steps, indexing="ij"),
-                      -1).reshape(-1, 2)  # (n_sub, 2), inclusive
-    return _grid_refine(cur_lab, ref_lab, labels, perm, bounds, n_regions,
-                        best_d, sub_np, range(-radius, radius + 2),
-                        coeff_mad, coeff_zncc)
-
-
-def _argmin_and_refine(costs, cur_lab, ref_lab, labels, perm, bounds,
-                       n_regions: int, search_range: int,
-                       subpixel_scale: int, coeff_mad: float,
-                       coeff_zncc: float, method: str = "matmul"):
+def _argmin_and_refine(costs, cur_lab, ref_lab, plan: RegionPlan, tables,
+                       coeff_mad: float, coeff_zncc: float,
+                       method: str = "matmul"):
     """The scoring tail every evaluator shares: the argmin over the
-    (possibly padding-trailed) cost table of ``method``'s candidates,
-    then the subpixel refinement, or for a coarse method the zero re-seed
-    of regions no coarse candidate scored (every cost inf, as a region
-    with no pixel on the half-resolution grid) and :func:`_local_refine`
-    -> (uv (n_regions, 2), cost)."""
-    cand_np = method_candidates(method, search_range)
-    with record_span("wait.argmin"):
-        cand = torch.as_tensor(cand_np, device=cur_lab.device)
-    costs = costs[: len(cand_np)]
+    (possibly padding-trailed) cost table of ``method``'s candidates
+    (``tables``: :func:`_search_tables`), then, for a coarse method, the
+    zero re-seed of regions no coarse candidate scored (every cost inf, as
+    a region with no pixel on the half-resolution grid), and the refine
+    of :func:`_refine_offsets` -> (uv (n_regions, 2), cost)."""
+    cand, n_cand, sub, offsets = tables
+    costs = costs[:n_cand]
     best = torch.argmin(costs, dim=0)        # first minimum, as jnp.argmin
     best_cost = costs.gather(0, best[None, :])[0]
     best_d = cand[best].to(cur_lab.dtype)
     if is_coarse(method):
         best_d = torch.where(torch.isfinite(best_cost)[:, None], best_d, 0.0)
-        best_d, best_cost = _local_refine(
-            cur_lab, ref_lab, labels, perm, bounds, n_regions, best_d,
-            max(subpixel_scale, 1), 2 if method == "matmul_half2" else 1,
-            coeff_mad, coeff_zncc)
-    elif subpixel_scale > 1:
-        best_d, best_cost = _subpixel_refine(
-            cur_lab, ref_lab, labels, perm, bounds, n_regions, best_d,
-            subpixel_scale, coeff_mad, coeff_zncc)
+    if sub is not None:
+        best_d, best_cost = _grid_refine(cur_lab, ref_lab, plan, best_d, sub,
+                                         offsets, coeff_mad, coeff_zncc)
     return torch.stack([best_d[:, 1], best_d[:, 0]], dim=-1), best_cost
-
-
-def _plan(cur_lab, labels, n_regions: int, method: str):
-    """Validate, and move the host labels and their reduction plan to the
-    frames' device."""
-    validate_method(method)
-    if n_regions > MAX_REGIONS:
-        raise ValueError(f"block matching: {n_regions} regions, more than "
-                         f"MAX_REGIONS={MAX_REGIONS}")
-    labels = np.asarray(labels)
-    dev = cur_lab.device
-    perm, bounds = region_reduction_plan(labels, n_regions)
-    labels_64 = labels.astype(np.int64)
-    with record_span("wait.plan", count=3):
-        return (labels, torch.from_numpy(labels_64).to(dev),
-                torch.from_numpy(perm).to(dev),
-                torch.from_numpy(bounds).to(dev))
-
-
-def _device_candidates(method: str, search_range: int, chunk: int,
-                       n_regions: int, device) -> torch.Tensor:
-    """``method``'s candidates padded to the chunk, on ``device``; notes
-    their count (before padding) and the regions on the search's span."""
-    cand_np = method_candidates(method, search_range)
-    note(candidates=len(cand_np), regions=n_regions)
-    with record_span("wait.candidates"):
-        return torch.as_tensor(padded_candidates(cand_np, chunk),
-                               device=device)
 
 
 def match_chunk(method: str, chunk: int) -> int:
@@ -547,60 +486,46 @@ def match_chunk(method: str, chunk: int) -> int:
     return max(int(chunk), 64) if method.startswith("matmul") else int(chunk)
 
 
-def _match_device(cur_lab, ref_lab, labels, n_regions: int, search_range,
+def _match_refs(cur_lab, refs, plan: RegionPlan, search_range, coeff_mad,
+                coeff_zncc, subpixel_scale, chunk, method: str):
+    """The search of ``cur_lab``'s regions against each of ``refs`` on the
+    frames' device: one evaluator over every reference, then each one's
+    argmin and refine. Returns [(uv (n_regions, 2), cost (n_regions,))]
+    per reference, each equal to a single-reference search."""
+    validate_method(method)
+    search_range = int(search_range)
+    chunk = match_chunk(method, chunk)
+    tables = _search_tables(method, search_range, chunk,
+                            int(subpixel_scale), plan.n_regions,
+                            cur_lab.dtype, cur_lab.device)
+    coeffs = (float(coeff_mad), float(coeff_zncc))
+    costs = method_costs(method, cur_lab, refs, plan, tables[0],
+                         search_range, *coeffs, chunk)
+    return [_argmin_and_refine(c, cur_lab, ref, plan, tables, *coeffs,
+                               method)
+            for c, ref in zip(costs, refs)]
+
+
+def _match_device(cur_lab, ref_lab, plan: RegionPlan, search_range,
                   coeff_mad, coeff_zncc, subpixel_scale, chunk,
                   method: str = "matmul"):
     """One direction's search on the frames' device; returns device
-    tensors (uv (n_regions, 2), cost (n_regions,)). ``labels`` is the
-    host label map (int, (H, W))."""
-    labels_np, labels_t, perm, bounds = _plan(cur_lab, labels, n_regions,
-                                              method)
-    n_regions = int(n_regions)
-    search_range = int(search_range)
-    chunk = match_chunk(method, chunk)
-    cand = _device_candidates(method, search_range, chunk, n_regions,
-                              cur_lab.device)
-    coeffs = (float(coeff_mad), float(coeff_zncc))
-    if method == "gather":
-        costs = _integer_costs(cur_lab, ref_lab, perm, bounds, n_regions,
-                               cand, *coeffs, chunk, search_range // 2)
-    else:
-        costs, = method_costs(method, cur_lab, [ref_lab], labels_np,
-                              n_regions, cand, search_range, *coeffs, chunk)
-    return _argmin_and_refine(costs, cur_lab, ref_lab, labels_t, perm,
-                              bounds, n_regions, search_range,
-                              int(subpixel_scale), *coeffs, method)
+    tensors (uv (n_regions, 2), cost (n_regions,))."""
+    return _match_refs(cur_lab, [ref_lab], plan, search_range, coeff_mad,
+                       coeff_zncc, subpixel_scale, chunk, method)[0]
 
 
-def _match_device_bidirectional(cur_lab, refp_lab, refn_lab, labels,
-                                n_regions: int, search_range, coeff_mad,
+def _match_device_bidirectional(cur_lab, refp_lab, refn_lab,
+                                plan: RegionPlan, search_range, coeff_mad,
                                 coeff_zncc, subpixel_scale, chunk,
                                 method: str = "matmul"):
-    """Both directions' searches; the matmul methods share one evaluator
-    (:func:`method_costs` over both references), ``"gather"`` runs two
-    :func:`_match_device`. Each direction equals its single-direction
-    search. Returns ((uv_p, cost_p), (uv_n, cost_n))."""
-    if method == "gather":
-        return tuple(_match_device(cur_lab, ref, labels, n_regions,
-                                   search_range, coeff_mad, coeff_zncc,
-                                   subpixel_scale, chunk, method)
-                     for ref in (refp_lab, refn_lab))
-    labels_np, labels_t, perm, bounds = _plan(cur_lab, labels, n_regions,
-                                              method)
-    n_regions = int(n_regions)
-    search_range = int(search_range)
-    chunk = match_chunk(method, chunk)
-    cand = _device_candidates(method, search_range, chunk, n_regions,
-                              cur_lab.device)
-    coeffs = (float(coeff_mad), float(coeff_zncc))
-    refs = (refp_lab, refn_lab)
-    costs_pair = method_costs(method, cur_lab, list(refs), labels_np,
-                              n_regions, cand, search_range, *coeffs, chunk)
-    return tuple(
-        _argmin_and_refine(costs, cur_lab, ref, labels_t, perm, bounds,
-                           n_regions, search_range, int(subpixel_scale),
-                           *coeffs, method)
-        for costs, ref in zip(costs_pair, refs))
+    """Both directions' searches over one plan and one set of tables; the
+    matmul methods share one evaluator over both references. Each
+    direction equals its single-direction search. Returns ((uv_p,
+    cost_p), (uv_n, cost_n))."""
+    return tuple(_match_refs(cur_lab, [refp_lab, refn_lab], plan,
+                             search_range, coeff_mad, coeff_zncc,
+                             subpixel_scale, chunk, method))
 
 
 def _result_from_host(uv, cost, lab_np) -> BlockMatchResult:
@@ -626,11 +551,11 @@ def block_matching_labels(
     """Match every region of ``cur`` against ``ref`` on their device;
     vectors point from cur pixels toward their reference-frame position
     (inverse flow, like the reference's get_prev)."""
-    lab_np = np.asarray(labels)
-    uv, cost = _match_device(cur_lab, ref_lab, lab_np, n_regions,
-                             search_range, coeff_mad, coeff_zncc,
-                             subpixel_scale, chunk, method)
-    return _result_from_host(uv, cost, lab_np)
+    plan = region_plan(labels, n_regions, cur_lab.device)
+    uv, cost = _match_device(cur_lab, ref_lab, plan, search_range,
+                             coeff_mad, coeff_zncc, subpixel_scale, chunk,
+                             method)
+    return _result_from_host(uv, cost, plan.host_labels)
 
 
 def block_matching_bidirectional(
@@ -649,11 +574,11 @@ def block_matching_bidirectional(
     """Bidirectional matching: returns (prev_result, next_result,
     t (H, W) in {-1, +1}) with t = -1 where the prev match wins
     (BlockMatching::get's Vector_ST time direction)."""
-    lab_np = np.asarray(labels)
+    plan = region_plan(labels, n_regions, cur_lab.device)
     d_prev, d_next = _match_device_bidirectional(
-        cur_lab, prev_lab, next_lab, lab_np, n_regions, search_range,
-        coeff_mad, coeff_zncc, subpixel_scale, chunk, method)
-    r_prev = _result_from_host(*d_prev, lab_np)
-    r_next = _result_from_host(*d_next, lab_np)
+        cur_lab, prev_lab, next_lab, plan, search_range, coeff_mad,
+        coeff_zncc, subpixel_scale, chunk, method)
+    r_prev = _result_from_host(*d_prev, plan.host_labels)
+    r_next = _result_from_host(*d_next, plan.host_labels)
     t = np.where(r_prev.cost <= r_next.cost, -1, 1).astype(np.int8)
     return r_prev, r_next, t

@@ -16,7 +16,6 @@ for every method; only O(n_cand x n_regions) floats cross the mesh.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -35,29 +34,6 @@ def _all_gather_rows(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return torch.cat(parts, dim=0).to(local.device)
 
 
-def _sharded_costs(mesh: Mesh, method: str, cur_lab, refs, labels_np,
-                   n_regions: int, search_range: int, coeffs, chunk: int,
-                   perm, bounds):
-    """This rank's slice of every reference's integer cost table,
-    gathered: the full padded (n_padded, n_regions) tables, one per
-    reference."""
-    cand_np = matcher.padded_candidates(
-        matcher.method_candidates(method, search_range), chunk, mesh.size)
-    per = len(cand_np) // mesh.size
-    place = mesh.iy * mesh.tx + mesh.ix
-    cand = torch.as_tensor(cand_np[place * per : (place + 1) * per],
-                           device=cur_lab.device)
-    if method == "gather":
-        local = [matcher._integer_costs(cur_lab, refs[0], perm, bounds,
-                                        n_regions, cand, *coeffs, chunk,
-                                        search_range // 2)]
-    else:
-        local = matcher.method_costs(method, cur_lab, list(refs), labels_np,
-                                     n_regions, cand, search_range, *coeffs,
-                                     chunk)
-    return [_all_gather_rows(c, mesh) for c in local]
-
-
 def _check_frames(mesh: Mesh, *frames) -> None:
     for f in frames:
         if f.device != mesh.device:
@@ -65,58 +41,58 @@ def _check_frames(mesh: Mesh, *frames) -> None:
                              f"{mesh.device}, got {f.device}")
 
 
-def _match_device_sharded(cur_lab, ref_lab, labels, n_regions: int,
+def _match_refs_sharded(cur_lab, refs, plan: matcher.RegionPlan,
+                        mesh: Mesh, search_range, coeff_mad, coeff_zncc,
+                        subpixel_scale, chunk, method: str):
+    """The candidate-parallel search against each of ``refs``: this
+    rank's slice of the padded candidate list scored for every reference
+    in one evaluator, every reference's (n_padded, n_regions) table
+    gathered in candidate order, then each one's argmin and refine on
+    every rank. Returns [(uv, cost)] per reference, each bitwise its
+    single-device search."""
+    _check_frames(mesh, cur_lab, *refs)
+    matcher.validate_method(method)
+    search_range = int(search_range)
+    chunk = matcher.match_chunk(method, chunk)
+    tables = matcher._search_tables(
+        method, search_range, chunk, int(subpixel_scale), plan.n_regions,
+        cur_lab.dtype, cur_lab.device, mesh.size)
+    per = tables[0].shape[0] // mesh.size
+    place = mesh.iy * mesh.tx + mesh.ix
+    coeffs = (float(coeff_mad), float(coeff_zncc))
+    local = matcher.method_costs(
+        method, cur_lab, refs, plan,
+        tables[0][place * per : (place + 1) * per], search_range, *coeffs,
+        chunk)
+    costs = [_all_gather_rows(c, mesh) for c in local]
+    return [matcher._argmin_and_refine(c, cur_lab, ref, plan, tables,
+                                       *coeffs, method)
+            for c, ref in zip(costs, refs)]
+
+
+def _match_device_sharded(cur_lab, ref_lab, plan: matcher.RegionPlan,
                           mesh: Mesh, search_range, coeff_mad, coeff_zncc,
                           subpixel_scale, chunk, method: str = "matmul"):
     """One direction's candidate-parallel search over the mesh; returns
     device tensors (uv (n_regions, 2), cost (n_regions,)) on every rank,
     bitwise :func:`~tpuflow_torch.blockmatching.matcher._match_device`'s."""
-    _check_frames(mesh, cur_lab, ref_lab)
-    labels_np, labels_t, perm, bounds = matcher._plan(cur_lab, labels,
-                                                      n_regions, method)
-    n_regions = int(n_regions)
-    search_range = int(search_range)
-    chunk = matcher.match_chunk(method, chunk)
-    coeffs = (float(coeff_mad), float(coeff_zncc))
-    costs, = _sharded_costs(mesh, method, cur_lab, [ref_lab], labels_np,
-                            n_regions, search_range, coeffs, chunk, perm,
-                            bounds)
-    return matcher._argmin_and_refine(costs, cur_lab, ref_lab, labels_t, perm,
-                                      bounds, n_regions, search_range,
-                                      int(subpixel_scale), *coeffs, method)
+    return _match_refs_sharded(cur_lab, [ref_lab], plan, mesh, search_range,
+                               coeff_mad, coeff_zncc, subpixel_scale, chunk,
+                               method)[0]
 
 
-def _match_device_sharded_bidirectional(cur_lab, refp_lab, refn_lab, labels,
-                                        n_regions: int, mesh: Mesh,
-                                        search_range, coeff_mad, coeff_zncc,
-                                        subpixel_scale, chunk,
+def _match_device_sharded_bidirectional(cur_lab, refp_lab, refn_lab,
+                                        plan: matcher.RegionPlan,
+                                        mesh: Mesh, search_range, coeff_mad,
+                                        coeff_zncc, subpixel_scale, chunk,
                                         method: str = "matmul"):
-    """Both directions' candidate-parallel searches: the matmul methods
-    score both references in one evaluator a rank and gather both tables;
-    ``"gather"`` runs two :func:`_match_device_sharded`. Returns ((uv_p,
-    cost_p), (uv_n, cost_n)), each bitwise its single-device search."""
-    if method == "gather":
-        return tuple(_match_device_sharded(cur_lab, ref, labels, n_regions,
-                                           mesh, search_range, coeff_mad,
-                                           coeff_zncc, subpixel_scale, chunk,
-                                           method)
-                     for ref in (refp_lab, refn_lab))
-    _check_frames(mesh, cur_lab, refp_lab, refn_lab)
-    labels_np, labels_t, perm, bounds = matcher._plan(cur_lab, labels,
-                                                      n_regions, method)
-    n_regions = int(n_regions)
-    search_range = int(search_range)
-    chunk = matcher.match_chunk(method, chunk)
-    coeffs = (float(coeff_mad), float(coeff_zncc))
-    refs = (refp_lab, refn_lab)
-    costs_pair = _sharded_costs(mesh, method, cur_lab, refs, labels_np,
-                                n_regions, search_range, coeffs, chunk, perm,
-                                bounds)
-    return tuple(
-        matcher._argmin_and_refine(costs, cur_lab, ref, labels_t, perm,
-                                   bounds, n_regions, search_range,
-                                   int(subpixel_scale), *coeffs, method)
-        for costs, ref in zip(costs_pair, refs))
+    """Both directions' candidate-parallel searches over one plan: the
+    matmul methods score both references in one evaluator a rank and
+    gather both tables. Returns ((uv_p, cost_p), (uv_n, cost_n)), each
+    bitwise its single-device search."""
+    return tuple(_match_refs_sharded(
+        cur_lab, [refp_lab, refn_lab], plan, mesh, search_range, coeff_mad,
+        coeff_zncc, subpixel_scale, chunk, method))
 
 
 def block_matching_labels_sharded(
@@ -136,9 +112,8 @@ def block_matching_labels_sharded(
     the same result on every rank, the search split over the mesh's ranks
     along the candidate axis. Frames on the mesh's device, labels a host
     (H, W) int map."""
-    lab_np = np.asarray(labels)
-    uv, cost = _match_device_sharded(cur_lab, ref_lab, lab_np, n_regions,
-                                     mesh, search_range, coeff_mad,
-                                     coeff_zncc, subpixel_scale, chunk,
-                                     method)
-    return matcher._result_from_host(uv, cost, lab_np)
+    plan = matcher.region_plan(labels, n_regions, cur_lab.device)
+    uv, cost = _match_device_sharded(cur_lab, ref_lab, plan, mesh,
+                                     search_range, coeff_mad, coeff_zncc,
+                                     subpixel_scale, chunk, method)
+    return matcher._result_from_host(uv, cost, plan.host_labels)

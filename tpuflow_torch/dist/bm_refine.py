@@ -33,10 +33,10 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
+from tpuflow_torch.blockmatching import matcher
 from tpuflow_torch.core.color import LAB_SCALE
 from tpuflow_torch.dist.halo import all_reduce, gather_tiles, halo_pad_2d, tile_of
 from tpuflow_torch.dist.mesh import Mesh
@@ -174,7 +174,7 @@ def _refine_tiles(interest_l, refs_l, labels, mesh: Mesh, lambda_d,
                         mesh, dist.ReduceOp.MAX)
     sup_x, sup_y = bm_flow.sup_of_max(maxima[0], maxima[1], lambda_d,
                                       lambda_s, sigma_d, sigma_s, sup_mode)
-    lab_full = torch.as_tensor(np.asarray(labels), device=dev).to(torch.int32)
+    lab_full = torch.as_tensor(labels, device=dev).to(torch.int32)
     # The fixed fields' fuse-wide halos, exchanged once.
     fixed = halo_pad_2d(torch.cat([gx[None], gy[None], its]), fuse, mesh)
     gx_p, gy_p, it_p = fixed[0], fixed[1], fixed[2:]
@@ -252,10 +252,10 @@ def gradient_method_flow_sharded(
     The single-device :func:`~tpuflow_torch.solvers.bm_flow.gradient_method_flow`'s
     descent with ``zero_warp=True`` (the flagship's MV zeroing); the stop
     decisions sit at the fused-block cadence (sweeps 64, 128, ...).
-    ``labels``: the host (H, W) label map. ``mv`` (an (H, W, 2) per-pixel
-    BM field on the mesh's device) takes the dt under the BM warp instead
-    (the driver's ``refine_warp=True``). ``blocks``, when a list,
-    receives the number of fused blocks run.
+    ``labels``: the (H, W) label map, on the host or the mesh's device.
+    ``mv`` (an (H, W, 2) per-pixel BM field on the mesh's device) takes
+    the dt under the BM warp instead (the driver's ``refine_warp=True``).
+    ``blocks``, when a list, receives the number of fused blocks run.
     """
     interest_l = interest_lab[..., 0] * LAB_SCALE
     reference_l = reference_lab[..., 0] * LAB_SCALE
@@ -360,8 +360,11 @@ def affine_parametric_flow_sharded(
     region's sums taken over the tiles and all-reduced, the parameter
     table on every rank. Returns (a (n_regions, 6), u, v), the full fields
     on every rank. ``max_displacement`` bounds |MV| for the warp halo
-    (default: its observed largest, a host sync)."""
-    h, w = _check(mesh, labels)
+    (default: its observed largest, a host sync). ``labels``: the host
+    (H, W) label map, or its :class:`matcher.RegionPlan` on the mesh's
+    device; the tile's plan is cut from its device labels."""
+    plan = matcher.as_plan(labels, n_regions, mesh.device)
+    h, w = _check(mesh, plan.labels)
     if max_displacement is None:
         max_displacement = int(math.ceil(max(
             float(mv_u.abs().max()), float(mv_v.abs().max()), 0.0)))
@@ -378,10 +381,10 @@ def affine_parametric_flow_sharded(
     it = _warp_dt_tile(int_p, tile_of(reference_l, mesh, R),
                        tile_of(mv_u, mesh), tile_of(mv_v, mesh), row0, col0,
                        h, w, R, at_xedge, at_yedge)
-    labels_t = np.asarray(labels)[row0 : row0 + h // mesh.ty,
-                                  col0 : col0 + w // mesh.tx]
+    tile = plan.view(slice(row0, row0 + h // mesh.ty),
+                     slice(col0, col0 + w // mesh.tx))
     a, u, v = bm_flow._irls_affine_regions(
-        gx, gy, it, labels_t, int(n_regions), float(sigma), int(iter_max),
+        gx, gy, it, tile, float(sigma), int(iter_max),
         error_min_threshold, normalize_steps, origin=(row0, col0),
         reduce_sum=lambda t: all_reduce(t, mesh, dist.ReduceOp.SUM),
         reduce_max=lambda t: all_reduce(t, mesh, dist.ReduceOp.MAX))

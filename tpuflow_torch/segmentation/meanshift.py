@@ -289,8 +289,7 @@ def segment_meanshift_async(
     ``finalize`` waits for the filter's output only, so the labeling
     overlaps whatever of that work the card still has queued
     (optical_flow_block_matching queues the middle frame's search behind
-    the new frame's filter, but the search drains the card before it
-    labels).
+    the new frame's filter, then labels while the card runs the search).
 
     ``scale > 1`` segments the stride-``scale`` subsampled frame with the
     spatial kernel and min_size scaled to match, then nearest-replicates

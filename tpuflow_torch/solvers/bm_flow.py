@@ -555,7 +555,7 @@ def gradient_method_flow_bidirectional(
 # Per-region affine parametric motion (AffineParametric)
 
 
-def _irls_affine_regions(gx, gy, it, labels, n_regions: int, sigma: float,
+def _irls_affine_regions(gx, gy, it, plan, sigma: float,
                          iter_max: int, error_min_threshold: float,
                          normalize_steps: bool = False, a0=None,
                          origin=(0, 0), reduce_sum=None, reduce_max=None):
@@ -564,12 +564,12 @@ def _irls_affine_regions(gx, gy, it, labels, n_regions: int, sigma: float,
     a region frozen once its energy falls below the threshold. Returns
     (a (n_regions, 6), u, v).
 
-    Every per-region sum runs through the matcher's deterministic plan
-    (pixels sorted by label once, then contiguous range sums in
-    :data:`matcher.ACC`, cast back to the fields' dtype), so the stop
-    tests and the parameters do not depend on a run's summation order;
-    the six basis fields are permuted once, psi and rho every iteration.
-    ``labels``: the (H, W) host label map of ``n_regions`` regions.
+    Every per-region sum runs through ``plan``, the fields' own
+    :class:`matcher.RegionPlan` (pixels sorted by label once, then
+    contiguous range sums in :data:`matcher.ACC`, cast back to the fields'
+    dtype), so the stop tests and the parameters do not depend on a run's
+    summation order; the six basis fields are permuted once, psi and rho
+    every iteration.
 
     On a mesh tile (:mod:`tpuflow_torch.dist.bm_refine`) the fields are
     the tile's, ``origin`` its frame coordinates, and ``reduce_sum`` /
@@ -579,11 +579,8 @@ def _irls_affine_regions(gx, gy, it, labels, n_regions: int, sigma: float,
     dt, dev = gx.dtype, gx.device
     reduce_sum = reduce_sum or (lambda t: t)
     reduce_max = reduce_max or (lambda t: t)
-    labels = np.asarray(labels)
-    perm, bounds = matcher.region_reduction_plan(labels, n_regions)
-    perm = torch.from_numpy(perm).to(dev)
-    bounds = torch.from_numpy(bounds).to(dev)
-    lab = torch.from_numpy(labels.astype(np.int64)).to(dev)
+    n_regions, perm, bounds = plan.n_regions, plan.perm, plan.bounds
+    lab = plan.labels.long()
     x = (torch.arange(w, dtype=dt, device=dev) + origin[1])[None, :].expand(
         h, w)
     y = (torch.arange(h, dtype=dt, device=dev) + origin[0])[:, None].expand(
@@ -654,7 +651,8 @@ def affine_parametric_flow(
     """AffineParametric (Affine_BlockMatching.cpp:11-77): per-region
     6-parameter robust fit of the residual motion under the BM warp
     (mv_u, mv_v), on the frames' device. ``labels``: the host (H, W) label
-    map. Returns (a (n_regions, 6), u, v).
+    map, or its :class:`matcher.RegionPlan` on the frames' device. Returns
+    (a (n_regions, 6), u, v).
 
     ``normalize_steps=True`` selects tpuflow's stabilized step (the mean
     gradient instead of the reference's summed gradient, which diverges
@@ -667,8 +665,8 @@ def affine_parametric_flow(
     gx, gy = gradient_method_grad(interest_l)
     it = gradient_method_dt(reference_lab[..., 0] * LAB_SCALE, interest_l,
                             mv_u, mv_v)
-    return _irls_affine_regions(gx, gy, it, labels, int(n_regions),
-                                float(sigma), int(iter_max),
+    plan = matcher.as_plan(labels, n_regions, interest_lab.device)
+    return _irls_affine_regions(gx, gy, it, plan, float(sigma), int(iter_max),
                                 error_min_threshold, normalize_steps, a0)
 
 
@@ -833,9 +831,9 @@ def optical_flow_block_matching_async(
     and composes (u, v, t) from the better direction per region. The new
     frame's filter is launched first and its output copied to pinned host
     memory right behind it; the host labels it once the middle frame's
-    search is issued. The search's own blocking uploads (its argmin's
-    candidate table) have drained the card by then, so the labeling runs
-    on an idle card, not beside the search.
+    search is issued. The search's blocking uploads (its plan's labels and
+    its tables) come before its first launch, so the labeling runs beside
+    the search on the card.
 
     ``profile``: :data:`PROFILES`; ``seg_scale > 1`` segments the
     stride-``seg_scale`` frame; ``refine_sup_mode``/``refine_plateau_rtol``:
@@ -912,13 +910,13 @@ def optical_flow_block_matching_async(
         else:
             from tpuflow_torch.dist import bm as dist_bm, bm_refine
 
-            def match_one(cur, ref, labels, n, *args):
-                return dist_bm._match_device_sharded(cur, ref, labels, n,
-                                                     mesh, *args)
+            def match_one(cur, ref, plan, *args):
+                return dist_bm._match_device_sharded(cur, ref, plan, mesh,
+                                                     *args)
 
-            def match_two(cur, refp, refn, labels, n, *args):
+            def match_two(cur, refp, refn, plan, *args):
                 return dist_bm._match_device_sharded_bidirectional(
-                    cur, refp, refn, labels, n, mesh, *args)
+                    cur, refp, refn, plan, mesh, *args)
 
         if bidirectional:
             interest_lab = state.lab_frames[0]
@@ -926,10 +924,10 @@ def optical_flow_block_matching_async(
             ref_prev = state.lab_frames[1]
             ref_next = itp1_lab
             with record_span("bm.search", device=device, directions=2):
+                plan = matcher.region_plan(seg.labels, seg.n_regions, device)
                 bm_dev = list(match_two(
-                    interest_lab, ref_prev, ref_next, seg.labels,
-                    seg.n_regions, search_range, 1.0, 0.5, subpixel_scale,
-                    16, bm_method))
+                    interest_lab, ref_prev, ref_next, plan, search_range,
+                    1.0, 0.5, subpixel_scale, 16, bm_method))
             seg_new = label(finalize_seg)
         else:
             # First pair: the new frame's segmentation gates the match.
@@ -937,17 +935,16 @@ def optical_flow_block_matching_async(
             interest_lab = itp1_lab
             ref_prev = state.lab_frames[0]
             with record_span("bm.search", device=device, direction="prev"):
+                plan = matcher.region_plan(seg.labels, seg.n_regions, device)
                 bm_dev = [match_one(
-                    interest_lab, ref_prev, seg.labels, seg.n_regions,
-                    search_range, 1.0, 0.5, subpixel_scale, 16, bm_method)]
+                    interest_lab, ref_prev, plan, search_range, 1.0, 0.5,
+                    subpixel_scale, 16, bm_method)]
 
-        with record_span("wait.labels"):
-            labels_t = torch.from_numpy(seg.labels).to(device)
         refine_kw = dict(iter_max=iter_max,
                          error_min_threshold=param.error_min_threshold,
                          sup_mode=refine_sup_mode,
                          plateau_rtol=refine_plateau_rtol, blocks=blocks)
-        labels_long = labels_t.long()
+        labels_long = plan.labels.long()
 
         def mv_of(bm_uv):
             return bm_uv[labels_long]
@@ -974,7 +971,7 @@ def optical_flow_block_matching_async(
                                    else (ref_prev,), bm_dev):
                     mv = mv_of(bm[0])
                     _, u, v = fit(ref, interest_lab, mv[..., 0],
-                                  mv[..., 1], seg.labels, seg.n_regions,
+                                  mv[..., 1], plan, seg.n_regions,
                                   **affine_kw)
                     refined.append((u, v))
                 if blocks is not None:
@@ -985,7 +982,7 @@ def optical_flow_block_matching_async(
                 refs = [ref_prev, ref_next] if bidirectional else [ref_prev]
                 pairs, trace = (
                     bm_refine.gradient_method_flow_sharded_bidirectional(
-                        refs, interest_lab, seg.labels, mesh, mvs=mvs,
+                        refs, interest_lab, plan.labels, mesh, mvs=mvs,
                         **refine_kw))
                 # E(n) at sweeps 0, 64, ... as tpuflow records it
                 for row in trace:
@@ -993,18 +990,18 @@ def optical_flow_block_matching_async(
                 refined = pairs
             elif bidirectional:
                 refined = gradient_method_flow_bidirectional(
-                    [ref_prev, ref_next], interest_lab, labels_t,
+                    [ref_prev, ref_next], interest_lab, plan.labels,
                     mvs=([mv_of(bm_dev[0][0]), mv_of(bm_dev[1][0])]
                          if refine_warp else None), **refine_kw)
             elif refine_warp:
                 mv = mv_of(bm_dev[0][0])
                 refined = [gradient_method_flow(
-                    ref_prev, interest_lab, mv[..., 0], mv[..., 1], labels_t,
-                    **refine_kw)]
+                    ref_prev, interest_lab, mv[..., 0], mv[..., 1],
+                    plan.labels, **refine_kw)]
             else:
                 zeros = torch.zeros_like(interest_lab[..., 0])
                 refined = [gradient_method_flow(
-                    ref_prev, interest_lab, zeros, zeros, labels_t,
+                    ref_prev, interest_lab, zeros, zeros, plan.labels,
                     zero_warp=True, **refine_kw)]
 
         with record_span("bm.compose", device=device):
