@@ -45,6 +45,11 @@ Phases, each printing one line of its own numbers:
    poly and blur row also counts its launches (one, two in a wide form);
    the gated IRLS 256 sweeps at 376x1240 and 375x1242, fuse 16 and 15,
    one and two directions, on the flagship scene's own refine inputs; the
+   gated refine's energy check (``gated_energy_rows``) at 2 x 375 x 1242
+   after sweeps 1, 65 and 2048 (E within ENERGY_RTOL of the plain
+   version's, read twice with equal bits), and whole bidirectional refines
+   through the kernel and through the plain energy under the default and
+   the turbo profile (equal checks, launches, stop points and fields); the
    mean-shift filter at R = 20 for one iteration at 376x1240 and eight on
    a 96x160 crop, in its wide form at
    R = 30 (E = 60, 2 iterations, 64x96) and R = 64 (E = 128, 1 iteration,
@@ -318,6 +323,13 @@ BM_NOISE = (1.0, 1.0, 2.5)
 BM_CROP = (slice(100, 196), slice(400, 560))
 BM_CROP_SEARCH, BM_CROP_ITERS = 15, 256
 GATED_SWEEPS, GATED_FUSE = 256, 16
+# The gated refine's energy check (gated_energy_rows): at the cells' size,
+# after these sweeps from zero (the first checks, and the refine's last
+# sweep); E against its plain version on the card within ENERGY_RTOL
+# relative (the same float32 terms, float64 sums in two orders); the
+# refine's profiles run through both energies.
+ENERGY_SHAPE, ENERGY_AT, ENERGY_RTOL = RAGGED_SHAPE, (1, 65, 2048), 1e-12
+ENERGY_PROFILES = ("faithful", "turbo")
 # The flagship's other profiles (bm_flow.PROFILES), run beside the default
 # on the same frames, and the search evaluators (matcher.METHODS), each on
 # pair 2's inputs at full size and held against the float32 CPU on BM_CROP
@@ -642,6 +654,21 @@ def gated_bound(labels: np.ndarray, sweeps, batch):
              + int((labels[1:] == labels[:-1]).sum()))
     ops = sweeps * batch * (26 * px + 29 * edges)
     return bound(4 * px * (5 * batch + 3), ops)
+
+
+def gated_energy_bound(labels: np.ndarray, batch):
+    # Per pixel and direction: the data term and rho (7), lambda_d * it (1),
+    # the norm (4), lambda_s * E_nb and the sum (2). Per edge between two
+    # pixels in the frame and in the same region (as this label map has
+    # them): the norms' product, the dot product and the cosine (5), the
+    # weight (2), the two differences and rho of each (8), their sum and
+    # the weight's product (2), and the add at each end (2): the term is
+    # symmetric, so the function needs it once per edge. Bytes: u, v and
+    # it a direction, gx, gy and the labels once.
+    px = labels.size
+    edges = (int((labels[:, 1:] == labels[:, :-1]).sum())
+             + int((labels[1:] == labels[:-1]).sum()))
+    return bound(4 * px * (3 * batch + 3), batch * (14 * px + 19 * edges))
 
 
 def bm_cost_bound(n_pix, n_cand, n_ref, n_regions):
@@ -1407,8 +1434,140 @@ def phase_kernels_flagship(dev, out) -> None:
                         u0, u0, gx, gy, it, labels, *sup, deep, *consts),
                     shape=shape, batch=batch, fuse=deep)
 
+    gated_energy_rows(dev, out)
     ms_rows(dev, out)
     bm_cost_rows(dev, out)
+
+
+def gated_energy_rows(dev, out) -> None:
+    """The gated refine's energy check (``irls_stencil.irls_gated_energy``,
+    ``gated_energy_kernel``) on the flagship scene at ENERGY_SHAPE, two
+    directions: after each of ENERGY_AT sweeps from zero, E against the
+    plain version on the card (max rel |d| within ENERGY_RTOL) and read
+    twice (equal bits); at the last, the kernel's device ms beside
+    gated_energy_bound, the plain version's, the host ms to issue one
+    check of each, and the launches of one call. Then the bidirectional
+    refine of each of ENERGY_PROFILES through the kernel and through the
+    plain energy: equal checks (the kernel's launches among them),
+    launches of the sweeps, sweeps run, stop checks per direction and
+    fields, and traces (float32) within an ulp."""
+    import torch
+
+    from tpuflow_torch.core.config import MultipleMotionParam
+    from tpuflow_torch.kernels import irls_stencil
+    from tpuflow_torch.solvers import bm_flow
+
+    consts = (bm_flow.LAMBDA_D, bm_flow.LAMBDA_S, bm_flow.SIGMA_D_BM,
+              bm_flow.SIGMA_S_BM)
+    _, cells, gx, gy, its, sup = flagship_refine_inputs(dev, ENERGY_SHAPE)
+    labels = torch.from_numpy(cells).to(dev)
+
+    def fields(u, v):
+        return (u, v, gx, gy, its, labels, *consts)
+
+    kernel = irls_stencil.irls_gated_energy
+    plain = irls_stencil.irls_gated_energy_plain
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs()).max())
+
+    u = v = torch.zeros_like(its)
+    done, errs = 0, []
+    for n in ENERGY_AT:
+        u, v, _ = bm_flow._sweep_block(u, v, gx, gy, its, labels, *sup,
+                                       n - done, *consts)
+        done = n
+        before = irls_stencil.LAUNCHES_GATED_ENERGY
+        e1 = kernel(*fields(u, v))
+        e2 = kernel(*fields(u, v))
+        want = plain(*fields(u, v))
+        launches = (irls_stencil.LAUNCHES_GATED_ENERGY - before) // 2
+        err = rel(e1, want)
+        same_bits = bool(np.array_equal(e1.cpu().numpy().view(np.int64),
+                                        e2.cpu().numpy().view(np.int64)))
+        errs.append(err)
+        log("kernels", kernel="irls_gated_energy", shape=ENERGY_SHAPE,
+            batch=2, after_sweeps=n, energy=e1.tolist(),
+            energy_plain=want.tolist(), max_rel_err=err,
+            read_twice_equal_bits=same_bits, launches=launches)
+        if not err <= ENERGY_RTOL or not same_bits or launches != 1:
+            raise AssertionError(
+                f"irls_gated_energy after {n} sweeps: max rel |d| {err}, "
+                f"equal bits {same_bits}, {launches} launches")
+
+    def issue_ms(fn, reps=20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t = 1e3 * (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize()
+        return t
+
+    ms = cuda_ms(lambda: kernel(*fields(u, v)), reps=21, device_only=True)
+    plain_ms = cuda_ms(lambda: plain(*fields(u, v)), reps=21,
+                       device_only=True)
+    work = gated_energy_bound(cells, 2)
+    row = {"max_rel_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+           **work, "share": work["bound_ms"] / ms,
+           "issue_ms": issue_ms(lambda: kernel(*fields(u, v))),
+           "plain_issue_ms": issue_ms(lambda: plain(*fields(u, v))),
+           "launches": 1}
+    log("kernels", kernel="irls_gated_energy", shape=ENERGY_SHAPE, batch=2,
+        after_sweeps=ENERGY_AT[-1], **row)
+    out.setdefault("irls_gated_energy", row)
+
+    threshold = MultipleMotionParam().error_min_threshold
+    for profile in ENERGY_PROFILES:
+        kw = bm_flow.PROFILES[profile]
+        runs = {}
+        for name, energy in (("kernel", kernel), ("plain", plain)):
+            calls = []
+
+            def counted_energy(*a, energy=energy, calls=calls):
+                calls.append(1)
+                return energy(*a)
+
+            blocks = []
+            before = irls_stencil.LAUNCHES_GATED_ENERGY
+            irls_stencil.irls_gated_energy = counted_energy
+            try:
+                ur, vr, _, n, trace = bm_flow.irls_gradient_method_batched(
+                    gx, gy, its, labels, *consts,
+                    kw.get("refine_iter_max", 2048), threshold,
+                    sup_mode=kw.get("refine_sup_mode", "reference"),
+                    plateau_rtol=kw.get("refine_plateau_rtol", 0.0),
+                    blocks=blocks)
+            finally:
+                irls_stencil.irls_gated_energy = kernel
+            torch.cuda.synchronize()
+            runs[name] = {
+                "fields": (ur, vr), "trace": trace, "sweeps": n,
+                "checks": len(calls), "launches": blocks[0],
+                "kernel_launches":
+                    irls_stencil.LAUNCHES_GATED_ENERGY - before,
+                "stop_checks": [int((~torch.isnan(t)).sum()) for t in trace]}
+        k, p = runs["kernel"], runs["plain"]
+        fields_equal = all(torch.equal(a, b)
+                           for a, b in zip(k["fields"], p["fields"]))
+        seen = ~torch.isnan(p["trace"])
+        # The refine returns its trace in the fields' float32.
+        trace_err = rel(k["trace"][seen], p["trace"][seen])
+        trace_tol = float(torch.finfo(p["trace"].dtype).eps)
+        log("kernels", kernel="irls_gated_energy", refine=profile,
+            shape=ENERGY_SHAPE, batch=2,
+            **{f"{f}_{name}": r[f] for name, r in runs.items()
+               for f in ("checks", "launches", "sweeps", "stop_checks")},
+            kernel_launches=k["kernel_launches"],
+            fields_equal=fields_equal, trace_max_rel_err=trace_err)
+        same = all(k[f] == p[f] for f in ("checks", "launches", "sweeps",
+                                          "stop_checks"))
+        if (not same or not fields_equal or not trace_err <= trace_tol
+                or k["kernel_launches"] != k["checks"]
+                or p["kernel_launches"] != 0):
+            raise AssertionError(f"irls_gated_energy refine {profile}: the "
+                                 "kernel's and the plain energy's refines "
+                                 "differ")
 
 
 def bm_cost_rows(dev, out) -> None:
@@ -2038,7 +2197,8 @@ KERNELS = ("hs_sweeps", "irls_sweeps", "sep_conv2d_valid",
            "fb_poly_expansion", "fb_blur_solve", "irls_gated_sweeps",
            "mean_shift_filter", "hs_tile_sweeps", "irls_tile_sweeps",
            "horn_schunck_resident", "horn_schunck_resident2",
-           "irls_gated_tile_sweeps", "mean_shift_filter_tile")
+           "irls_gated_tile_sweeps", "mean_shift_filter_tile",
+           "irls_gated_energy")
 
 
 def reset_counts() -> None:
@@ -2053,6 +2213,7 @@ def reset_counts() -> None:
     irls_stencil.LAUNCHES_TILE = 0
     irls_stencil.LAUNCHES_GATED = 0
     irls_stencil.LAUNCHES_GATED_TILE = 0
+    irls_stencil.LAUNCHES_GATED_ENERGY = 0
     sepconv.LAUNCHES = 0
     ms_filter.LAUNCHES = 0
     ms_filter.LAUNCHES_TILE = 0
@@ -2074,7 +2235,8 @@ def read_counts() -> dict:
             "horn_schunck_resident": hs_stencil.LAUNCHES_RESIDENT,
             "horn_schunck_resident2": hs_stencil.LAUNCHES_RESIDENT2,
             "irls_gated_tile_sweeps": irls_stencil.LAUNCHES_GATED_TILE,
-            "mean_shift_filter_tile": ms_filter.LAUNCHES_TILE}
+            "mean_shift_filter_tile": ms_filter.LAUNCHES_TILE,
+            "irls_gated_energy": irls_stencil.LAUNCHES_GATED_ENERGY}
 
 
 def counted(path: str, fn, expected, totals: dict):
@@ -2095,6 +2257,30 @@ def counted(path: str, fn, expected, totals: dict):
     for k, n in got.items():
         totals[k] = totals.get(k, 0) + n
     return result
+
+
+def refine_checks(launches: int, iter_max: int = 2048) -> int:
+    """Energy checks of a whole-frame gated refine of at most ``iter_max``
+    sweeps that made ``launches`` launches of the sweeps: its check
+    schedule (bm_flow._check_schedule, blocks of bm_flow.DEFAULT_FUSE
+    sweeps a launch) up to that many launches."""
+    from tpuflow_torch.solvers import bm_flow
+
+    checks = ran = 0
+    for k, check in bm_flow._check_schedule(iter_max):
+        if ran >= launches:
+            break
+        ran += -(-k // bm_flow.DEFAULT_FUSE)
+        checks += check is not None
+    return checks
+
+
+def gated_expected(blocks, iter_max: int = 2048) -> dict:
+    """The gated refine's launches over its calls' ``blocks``: the sweeps
+    and one energy check launch a check."""
+    return {"irls_gated_sweeps": sum(blocks),
+            "irls_gated_energy": sum(refine_checks(b, iter_max)
+                                     for b in blocks)}
 
 
 def fb_expected(cfg, blur_kernel=False, pairs=1) -> dict:
@@ -2195,7 +2381,7 @@ def phase_main(dev):
     stream = counted("dense_flow_stream", lambda: stream_call(frames, dev),
                      fb_expected(FB_STREAM, pairs=STREAM_FRAMES - 1), totals)
 
-    from tpuflow_torch.solvers.bm_flow import BMFlowState
+    from tpuflow_torch.solvers.bm_flow import PROFILES, BMFlowState
 
     bm_frames, _ = voronoi_frames()
     bm_blocks = []
@@ -2204,12 +2390,12 @@ def phase_main(dev):
         "flagship_pair1_cold", lambda: bm_pair(bm_frames, 0, state, dev,
                                                bm_blocks),
         lambda _: {"mean_shift_filter": 2,
-                   "irls_gated_sweeps": bm_blocks[0]}, totals)
+                   **gated_expected(bm_blocks[:1])}, totals)
     out2, state = counted(
         "flagship_pair2_bidirectional", lambda: bm_pair(bm_frames, 1, state,
                                                         dev, bm_blocks),
         lambda _: {"mean_shift_filter": 1,
-                   "irls_gated_sweeps": bm_blocks[1]}, totals)
+                   **gated_expected(bm_blocks[1:])}, totals)
     log("main", bm_blocks=bm_blocks)
     profiles = {}
     for profile in BM_PROFILES:
@@ -2220,9 +2406,10 @@ def phase_main(dev):
                 f"flagship_{profile}_pair{k + 1}",
                 lambda k=k, st=p_state, profile=profile, p_blocks=p_blocks:
                 bm_pair(bm_frames, k, st, dev, p_blocks, profile=profile),
-                lambda _, k=k, p_blocks=p_blocks: {
+                lambda _, k=k, p_blocks=p_blocks, profile=profile: {
                     "mean_shift_filter": 2 if k == 0 else 1,
-                    "irls_gated_sweeps": p_blocks[k]}, totals)
+                    **gated_expected(p_blocks[k : k + 1], PROFILES[
+                        profile]["refine_iter_max"])}, totals)
             p_outs.append(out)
         log("main", profile=profile, bm_blocks=p_blocks)
         profiles[profile] = (p_outs, p_state)
@@ -2862,8 +3049,8 @@ def main_affine(dev, totals: dict, bm_outs):
     stream = counted(
         "bm_flow_stream", lambda: list(bm_flow_stream(
             frames, device=dev, blocks=sblocks)),
-        lambda _: {"mean_shift_filter": 3,
-                   "irls_gated_sweeps": sum(sblocks)}, totals)
+        lambda _: {"mean_shift_filter": 3, **gated_expected(sblocks)},
+        totals)
     for k, (o_s, o_q) in enumerate(zip(stream, bm_outs)):
         for f in ("u", "v", "t", "bm_u", "bm_v"):
             if not np.array_equal(getattr(o_s, f), getattr(o_q, f)):
@@ -4055,9 +4242,12 @@ def pipeline_expected(name, span, dev):
     if not name.endswith("_bm"):
         return {}
     blocks = []
+    iter_max = pipeline_options(dict((m[0], m[3]) for m in PIPE_MODES)[name],
+                                False).multiple_motion_param.irls_iter_max
     return blocks, lambda _: {
         "mean_shift_filter": span[1] - span[0] + 1,
-        "irls_gated_sweeps": sum(blocks) if name == "opticalflow_bm" else 0}
+        **(gated_expected(blocks, iter_max) if name == "opticalflow_bm"
+           else {})}
 
 
 def phase_pipeline(dev, totals: dict, folder: Path) -> dict:

@@ -1,4 +1,5 @@
-// Fused region-gated IRLS Jacobi sweeps for Hopper (sm_90a).
+// Fused region-gated IRLS Jacobi sweeps for Hopper (sm_90a), and the
+// refine's energy check (gated_energy_kernel, after the sweeps).
 //
 // Replaces tpuflow/kernels/irls_stencil.py::irls_gated_sweep_pallas (the
 // TPU kernel _irls_gated_kernel with its sweep body _irls_sweeps_gated):
@@ -300,6 +301,148 @@ int launch(const void* u, const void* v, const void* gx, const void* gy,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The refine's energy check: gated_energy_kernel.
+//
+// Replaces no TPU kernel: tpuflow computes this energy in plain jnp and
+// leaves it to XLA (tpuflow/solvers/bm_flow.py:326). The port ran it as an
+// eager chain of about 131 small ops a check (rolls, masks, a float64 sum),
+// 32 checks a 2048-sweep refine; this kernel is the whole check in one
+// launch. Per reference direction b of (B, H, W) fields it computes
+//
+//     E_b  = sum over pixels of float64(lambda_d * rho(gx*u + gy*v + it,
+//                                                      sigma_d)
+//                                       + lambda_s * E_nb)
+//     E_nb = sum over the 4 neighbours n in the frame AND in the same
+//            region, in the order (-1,0), (1,0), (0,-1), (0,1), of
+//            0.5*(1 + cos(u, u_n)) * (rho(u - u_n, sigma_s)
+//                                     + rho(v - v_n, sigma_s))
+//
+// with rho(x, s) = x^2 / (s + x^2) and irls_gated_kernel's cosine. Each
+// pixel's float32 term is the plain version's
+// (irls_stencil.irls_gated_energy_plain) to the last bit: the same
+// operations in the same order, each rounded (the build contracts no FMA
+// and keeps divisions and square roots IEEE), the constants rounded to
+// float as PyTorch rounds a Python scalar. A gated-off neighbour adds +-0
+// there, which leaves the sum unchanged (it starts at +0), so skipping it
+// is bitwise the same; the gate comes from the int32 labels, as in
+// irls_gated_kernel. Only the order of the float64 sum differs.
+//
+// What bounds it on the H100: about 36 bytes a pixel at B = 2 (u, v and it
+// a direction; gx, gy and the labels shared), 16.8 MB or about 5 us at
+// 3.35 TB/s for 2 x 375 x 1242, against about 100 float32 operations a
+// pixel and direction, among them 5 square roots and 13 IEEE divisions,
+// each a multi-instruction sequence with a slow path. The neighbours' u
+// and v come through the cache (a pixel's neighbours lie in its own row
+// and the rows above and below, which nearby blocks read too), and each
+// neighbour's norm is recomputed where it is used: staging a tile would
+// save cache traffic in a kernel that is a small part of a check (0.030 ms
+// of device time there on the H100, against the chain's 0.73 ms and its
+// ~1.5 ms of host issue, PERF.md section 6).
+//
+// The design: one thread a pixel, ENERGY_PIXELS pixels a thread at the
+// block's stride (coalesced), ENERGY_THREADS threads a block, blockIdx.y
+// the direction. The sum is deterministic, so E, and the stop decisions
+// that read it, are the same bits from run to run: a thread adds its
+// pixels' terms in float64 in order, the block adds its threads' sums in a
+// fixed tree and writes one float64 partial; the last block to finish
+// (an integer ticket from atomicInc on energy_retired, which wraps back to
+// 0 for the next launch) adds each direction's partials in a fixed order:
+// thread t the partials t, t + ENERGY_THREADS, ..., then the same tree.
+// No float64 atomics, whose order changes from run to run. The launches
+// on one device share the ticket, so they must not overlap: the refine
+// issues them on one stream.
+
+constexpr int ENERGY_THREADS = 256;
+constexpr int ENERGY_PIXELS = 4;
+constexpr int ENERGY_SPAN = ENERGY_THREADS * ENERGY_PIXELS;
+
+__device__ unsigned int energy_retired = 0;
+
+__device__ __forceinline__ float rho_gm(float x, float sigma) {
+  return x * x / (sigma + x * x);
+}
+
+// E_nb's summand for neighbour q of cell c.
+__device__ __forceinline__ float neighbor_term(float uc, float vc, float nc,
+                                               float uq, float vq,
+                                               float sigma_s) {
+  const float nq = sqrtf(uq * uq + vq * vq);
+  const float prod = nc * nq;
+  const float cosang =
+      prod > 0.f ? (uc * uq + vc * vq) / fmaxf(prod, 1e-30f) : 1.0f;
+  const float m = 0.5f * (1.0f + cosang);
+  return m * (rho_gm(uc - uq, sigma_s) + rho_gm(vc - vq, sigma_s));
+}
+
+// s[0 .. ENERGY_THREADS) summed in a fixed tree into s[0]; every thread of
+// the block calls it.
+__device__ __forceinline__ void tree_sum(double* s) {
+#pragma unroll
+  for (int stride = ENERGY_THREADS / 2; stride > 0; stride >>= 1) {
+    if ((int)threadIdx.x < stride) s[threadIdx.x] += s[threadIdx.x + stride];
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(ENERGY_THREADS) gated_energy_kernel(
+    const float* __restrict__ u, const float* __restrict__ v,
+    const float* __restrict__ gx, const float* __restrict__ gy,
+    const float* __restrict__ it, const int* __restrict__ labels,
+    double* __restrict__ partials, double* __restrict__ out, int h, int w,
+    float lambda_d, float lambda_s, float sigma_d, float sigma_s) {
+  __shared__ double s[ENERGY_THREADS];
+  __shared__ bool last;
+  const int tid = threadIdx.x;
+  const int n = h * w;
+  const size_t batch = blockIdx.y * (size_t)n;
+  double acc = 0.0;
+#pragma unroll
+  for (int k = 0; k < ENERGY_PIXELS; ++k) {
+    const int p = blockIdx.x * ENERGY_SPAN + k * ENERGY_THREADS + tid;
+    if (p >= n) break;
+    const int y = p / w, x = p - y * w;
+    const size_t g = batch + p;
+    const float uc = u[g], vc = v[g];
+    const float center =
+        rho_gm(__ldg(gx + p) * uc + __ldg(gy + p) * vc + it[g], sigma_d);
+    const float nc = sqrtf(uc * uc + vc * vc);
+    const int lc = __ldg(labels + p);
+    float e = 0.f;
+    if (x > 0 && __ldg(labels + p - 1) == lc)
+      e = e + neighbor_term(uc, vc, nc, u[g - 1], v[g - 1], sigma_s);
+    if (x + 1 < w && __ldg(labels + p + 1) == lc)
+      e = e + neighbor_term(uc, vc, nc, u[g + 1], v[g + 1], sigma_s);
+    if (y > 0 && __ldg(labels + p - w) == lc)
+      e = e + neighbor_term(uc, vc, nc, u[g - w], v[g - w], sigma_s);
+    if (y + 1 < h && __ldg(labels + p + w) == lc)
+      e = e + neighbor_term(uc, vc, nc, u[g + w], v[g + w], sigma_s);
+    acc += (double)(lambda_d * center + lambda_s * e);
+  }
+  s[tid] = acc;
+  __syncthreads();
+  tree_sum(s);
+  if (tid == 0) {
+    partials[blockIdx.y * gridDim.x + blockIdx.x] = s[0];
+    __threadfence();
+    const unsigned total = gridDim.x * gridDim.y;
+    last = atomicInc(&energy_retired, total - 1) == total - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (unsigned b = 0; b < gridDim.y; ++b) {
+    double a = 0.0;
+    for (unsigned i = tid; i < gridDim.x; i += ENERGY_THREADS)
+      a += __ldcg(partials + b * gridDim.x + i);
+    s[tid] = a;
+    __syncthreads();
+    tree_sum(s);
+    if (tid == 0) out[b] = s[0];
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 extern "C" int irls_gated_launch(
@@ -330,6 +473,33 @@ extern "C" int irls_gated_tile_launch(
                       gm, batch, fuse, lambda_d, lambda_s, sigma_d, sigma_s,
                       (cudaStream_t)stream);
 }
+
+// The refine's energy of (batch, h, w) fields u, v, it with (h, w) gx, gy
+// and int32 labels: one float64 a direction into out, through `partials`,
+// n_partials doubles of scratch (at least batch * ceil(h * w /
+// irls_gated_energy_span())).
+extern "C" int irls_gated_energy_launch(
+    const void* u, const void* v, const void* gx, const void* gy,
+    const void* it, const void* labels, void* partials, long long n_partials,
+    void* out, int h, int w, int batch, float lambda_d, float lambda_s,
+    float sigma_d, float sigma_s, void* stream) {
+  if (h < 1 || w < 1 || batch < 1 || batch > 65535 ||
+      (long long)h * w > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int blocks =
+      (int)(((long long)h * w + ENERGY_SPAN - 1) / ENERGY_SPAN);
+  if ((long long)blocks * batch > n_partials)
+    return (int)cudaErrorInvalidValue;
+  gated_energy_kernel<<<dim3(blocks, batch), ENERGY_THREADS, 0,
+                        (cudaStream_t)stream>>>(
+      (const float*)u, (const float*)v, (const float*)gx, (const float*)gy,
+      (const float*)it, (const int*)labels, (double*)partials, (double*)out,
+      h, w, lambda_d, lambda_s, sigma_d, sigma_s);
+  return (int)cudaGetLastError();
+}
+
+// Pixels of one direction one block of gated_energy_kernel sums.
+extern "C" int irls_gated_energy_span() { return ENERGY_SPAN; }
 
 // Blocks of irls_gated_kernel one SM holds at once, or -(CUDA error).
 extern "C" int irls_gated_blocks_per_sm() {

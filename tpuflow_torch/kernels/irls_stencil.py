@@ -32,6 +32,12 @@ weighted by the direction coherence 0.5 * (1 + cos(u, u_nbr)), batched
 over reference directions; CUDA tensors take ``csrc/irls_gated.cu``, which
 computes each edge's term once in the same way.
 
+:func:`irls_gated_energy` is the gated refine's energy check (the
+plain jnp energy of tpuflow's ``irls_gradient_method``; no TPU kernel):
+CUDA tensors take ``gated_energy_kernel`` of ``csrc/irls_gated.cu``, one
+launch a check, whose float32 terms are the plain version's to the last
+bit and whose float64 sum runs in a fixed order.
+
 :func:`irls_gated_tile_sweeps` is the same gated sweep on one halo'd
 mesh tile at a frame origin (tpuflow's ``_irls_sweeps_gated`` on the
 tiles of ``tpuflow/dist/bm_refine.py``), through the tile form of
@@ -53,12 +59,13 @@ from tpuflow_torch.core import borders as bd
 from tpuflow_torch.kernels import _build
 
 # Launches of the CUDA kernels in this process (never the plain versions):
-# irls_sweeps, irls_tile_sweeps, irls_gated_sweeps and
-# irls_gated_tile_sweeps.
+# irls_sweeps, irls_tile_sweeps, irls_gated_sweeps, irls_gated_tile_sweeps
+# and irls_gated_energy.
 LAUNCHES = 0
 LAUNCHES_TILE = 0
 LAUNCHES_GATED = 0
 LAUNCHES_GATED_TILE = 0
+LAUNCHES_GATED_ENERGY = 0
 # The staged tiles (rows, columns) and threads per block of
 # csrc/irls_stencil.cu (irls_sweeps and irls_tile_sweeps: WIDE, and
 # NARROW, which its launcher takes where WIDE's blocks would fill a
@@ -341,6 +348,12 @@ def _lib_gated() -> ctypes.CDLL:
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4
         + [ctypes.c_void_p])
     lib.irls_gated_tile_launch.restype = ctypes.c_int
+    lib.irls_gated_energy_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+    lib.irls_gated_energy_launch.restype = ctypes.c_int
+    lib.irls_gated_energy_span.argtypes = []
+    lib.irls_gated_energy_span.restype = ctypes.c_int
     lib.irls_gated_blocks_per_sm.argtypes = []
     lib.irls_gated_blocks_per_sm.restype = ctypes.c_int
     lib.irls_gated_error_string.argtypes = [ctypes.c_int]
@@ -464,6 +477,84 @@ def _gated_launch(u, v, gx, gy, it, labels, sup_x, sup_y, fuse, lambda_d,
     _build.check_launch(lib, "irls_gated", rc)
     LAUNCHES_GATED += 1
     return u_out, v_out
+
+
+def irls_gated_energy_plain(u, v, gx, gy, it, labels, lambda_d: float,
+                            lambda_s: float, sigma_d: float, sigma_s: float):
+    """The gated refine's total energy per field in plain PyTorch
+    (tpuflow's ``irls_gradient_method`` energy): float64, over the last two
+    axes, the sum taken in float64 so the stop decision does not hang on
+    one device's reduction order. ``u``, ``v``, ``it`` may carry a leading
+    batch axis; ``gx``, ``gy``, ``labels`` are (H, W) and shared."""
+    from tpuflow_torch.solvers.bm_flow import _neighbor_energy
+    from tpuflow_torch.solvers.mestimators import geman_mcclure_rho as rho
+
+    center = rho(gx * u + gy * v + it, sigma_d)
+    return torch.sum(lambda_d * center
+                     + lambda_s * _neighbor_energy(u, v, labels, sigma_s),
+                     dim=(-2, -1), dtype=torch.float64)
+
+
+def irls_gated_energy(u, v, gx, gy, it, labels, lambda_d: float,
+                      lambda_s: float, sigma_d: float, sigma_s: float):
+    """The gated refine's total energy per field: a float64 tensor of
+    ``u.shape[:-2]``.
+
+    ``u``, ``v``, ``it``: (H, W) or (B, H, W), one field per reference
+    direction; ``gx``, ``gy``, ``labels``: (H, W), shared; all on one
+    device. CPU tensors take :func:`irls_gated_energy_plain`; CUDA tensors
+    (contiguous float32 fields, contiguous int32 labels) one launch of
+    ``gated_energy_kernel``, or raise. The kernel's float32 terms are the
+    plain version's; its float64 sum runs in another order, fixed, so its
+    E is the same bits from run to run.
+    """
+    global LAUNCHES_GATED_ENERGY
+    if u.shape != v.shape or u.shape != it.shape or u.dim() not in (2, 3):
+        raise ValueError("irls_gated_energy: u, v, it must share an (H, W) "
+                         f"or (B, H, W) shape, got {tuple(u.shape)}, "
+                         f"{tuple(v.shape)}, {tuple(it.shape)}")
+    for f in (gx, gy, labels):
+        if f.shape != u.shape[-2:]:
+            raise ValueError("irls_gated_energy: gx, gy and labels must be "
+                             f"the fields' (H, W) {tuple(u.shape[-2:])}, "
+                             f"got {tuple(f.shape)}")
+    for f in (v, gx, gy, it, labels):
+        if f.device != u.device:
+            raise ValueError(f"irls_gated_energy: tensors on {f.device} and "
+                             f"{u.device}")
+    consts = (lambda_d, lambda_s, sigma_d, sigma_s)
+    if u.device.type == "cpu":
+        return irls_gated_energy_plain(u, v, gx, gy, it, labels, *consts)
+    for f in (u, v, gx, gy, it):
+        if f.dtype != torch.float32:
+            raise TypeError("irls_gated_energy: the CUDA kernel takes "
+                            f"float32 fields, got {f.dtype}")
+    if labels.dtype != torch.int32:
+        raise TypeError("irls_gated_energy: the CUDA kernel takes int32 "
+                        f"labels, got {labels.dtype}")
+    for f in (u, v, gx, gy, it, labels):
+        if not f.is_contiguous():
+            raise ValueError("irls_gated_energy: the CUDA kernel takes "
+                             "contiguous tensors")
+    if u.device.type != "cuda":
+        raise ValueError(f"irls_gated_energy: no kernel for device "
+                         f"{u.device}")
+    lib = _lib_gated()
+    h, w = gx.shape
+    batch = u.shape[0] if u.dim() == 3 else 1
+    span = lib.irls_gated_energy_span()
+    n_partials = batch * -(-h * w // span)
+    out = torch.empty(u.shape[:-2], dtype=torch.float64, device=u.device)
+    partials = torch.empty(n_partials, dtype=torch.float64, device=u.device)
+    with torch.cuda.device(u.device):
+        rc = lib.irls_gated_energy_launch(
+            u.data_ptr(), v.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+            it.data_ptr(), labels.data_ptr(), partials.data_ptr(),
+            n_partials, out.data_ptr(), h, w, batch, *consts,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(lib, "irls_gated", rc)
+    LAUNCHES_GATED_ENERGY += 1
+    return out
 
 
 def irls_gated_tile_sweeps_plain(u_p, v_p, gx_p, gy_p, it_p, lab_p, sup_x,

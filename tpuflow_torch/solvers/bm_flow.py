@@ -17,11 +17,12 @@ Port of :mod:`tpuflow.solvers.bm_flow` (``OpticalFlow_BlockMatching.cpp:
 6. compose BM vector + refinement into (u, v, t), t in {-1, +1}
    (Vector_ST, lines 306-361).
 
-**Host syncs:** the gradient refinement reads its energy back with
-``.item()`` at each check, at tpuflow's cadence (after sweeps 1, 65,
-129, ...: 32 per 2048-sweep refine); the affine fit reads its all-done
-flag once every :data:`AFFINE_CHECK_EVERY` iterations; the segmentation's
-labeling runs on the host.
+**Host syncs:** the gradient refinement reads its energy
+(:func:`tpuflow_torch.kernels.irls_stencil.irls_gated_energy`, one kernel
+launch on the card) back with ``.item()`` at each check, at tpuflow's
+cadence (after sweeps 1, 65, 129, ...: 32 per 2048-sweep refine); the
+affine fit reads its all-done flag once every :data:`AFFINE_CHECK_EVERY`
+iterations; the segmentation's labeling runs on the host.
 
 ``mesh`` (a :class:`tpuflow_torch.dist.Mesh`; every rank calls the driver
 with the same frames) runs the device stages over the mesh's ranks, as
@@ -265,18 +266,6 @@ def sup_of_max(gx2, gy2, lambda_d, lambda_s, sigma_d, sigma_s,
                  + 4.0 * lambda_s / sigma_s**2 for g2 in (gx2, gy2))
 
 
-def _gated_energy(u, v, gx, gy, it, labels, gates, lambda_d, lambda_s,
-                  sigma_d, sigma_s) -> torch.Tensor:
-    """Total energy per field (float64, over the last two axes): the sum
-    is taken in float64 so the stop decision does not hang on one
-    device's reduction order."""
-    center = geman_mcclure_rho(gx * u + gy * v + it, sigma_d)
-    return torch.sum(lambda_d * center
-                     + lambda_s * _neighbor_energy(u, v, labels, sigma_s,
-                                                   gates),
-                     dim=(-2, -1), dtype=torch.float64)
-
-
 def _sweep_block(u, v, gx, gy, it, labels, sup_x, sup_y, n: int,
                  lambda_d, lambda_s, sigma_d, sigma_s):
     """``n`` sweeps as launches of at most :data:`DEFAULT_FUSE`; returns
@@ -326,16 +315,17 @@ def irls_gradient_method(
     :data:`DEFAULT_FUSE`
     through :func:`tpuflow_torch.kernels.irls_stencil.irls_gated_sweeps`;
     the descent is tpuflow's default (not its ``_fast`` variant's). Each
-    check reads the energy back with ``.item()``. ``plateau_rtol > 0``
-    also stops once a check window improves the energy by less than that
-    fraction. ``blocks``, when a list, receives the launch count.
+    check computes the energy through
+    :func:`tpuflow_torch.kernels.irls_stencil.irls_gated_energy` and reads
+    it back with ``.item()``. ``plateau_rtol > 0`` also stops once a check
+    window improves the energy by less than that fraction. ``blocks``,
+    when a list, receives the launch count.
 
     Returns (u, v, E, n, trace): ``trace[k]`` is E after the sweep with
     index 64 k (a tensor of the fields' dtype); NaN past the stop.
     """
     sup_x, sup_y = _gated_sup(gx, gy, lambda_d, lambda_s, sigma_d, sigma_s,
                               sup_mode)
-    gates = _region_gates(labels, gx.dtype)
     threshold = in_dtype(error_min_threshold, gx.dtype)
     trace = [math.nan] * _n_checks(iter_max)
     u = torch.zeros_like(gx) if u0 is None else u0
@@ -349,8 +339,8 @@ def irls_gradient_method(
         launches += nl
         if check is None:
             break
-        energy = _gated_energy(u, v, gx, gy, it, labels, gates, lambda_d,
-                               lambda_s, sigma_d, sigma_s)
+        energy = irls_stencil.irls_gated_energy(
+            u, v, gx, gy, it, labels, lambda_d, lambda_s, sigma_d, sigma_s)
         with record_span("wait.refine_check"):
             E_new = energy.item()  # host sync
         checks += 1
@@ -385,7 +375,6 @@ def irls_gradient_method_batched(
     axis (trace: (B, n_checks), NaN past each element's stop)."""
     sup_x, sup_y = _gated_sup(gx, gy, lambda_d, lambda_s, sigma_d, sigma_s,
                               sup_mode)
-    gates = _region_gates(labels, gx.dtype)
     threshold = in_dtype(error_min_threshold, gx.dtype)
     batch = its.shape[0]
     trace = [[math.nan] * _n_checks(iter_max) for _ in range(batch)]
@@ -414,8 +403,8 @@ def irls_gradient_method_batched(
         launches += nl
         if check is None:
             break
-        energy = _gated_energy(u, v, gx, gy, its, labels, gates, lambda_d,
-                               lambda_s, sigma_d, sigma_s)
+        energy = irls_stencil.irls_gated_energy(
+            u, v, gx, gy, its, labels, lambda_d, lambda_s, sigma_d, sigma_s)
         with record_span("wait.refine_check"):
             E_all = energy.tolist()  # host sync
         checks += 1
@@ -446,7 +435,6 @@ def irls_gradient_method_fast(
     :func:`irls_gradient_method`'s; only the stop decision points move.
     Returns (u, v, E, blocks, trace)."""
     sup_x, sup_y = _gated_sup(gx, gy, lambda_d, lambda_s, sigma_d, sigma_s)
-    gates = _region_gates(labels, gx.dtype)
     threshold = in_dtype(error_min_threshold, gx.dtype)
     per_check = max(CHECK_EVERY // fuse, 1)
     n_blocks = -(-iter_max // fuse)
@@ -461,8 +449,9 @@ def irls_gradient_method_fast(
         b += 1
         if b % per_check:
             continue
-        E_new = _gated_energy(u, v, gx, gy, it, labels, gates, lambda_d,
-                              lambda_s, sigma_d, sigma_s).item()  # host sync
+        E_new = irls_stencil.irls_gated_energy(
+            u, v, gx, gy, it, labels, lambda_d, lambda_s, sigma_d,
+            sigma_s).item()  # host sync
         inc = inc + 1 if E_new > E else 0
         E = E_new
         trace[b // per_check - 1] = E
